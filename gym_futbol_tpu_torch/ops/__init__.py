@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for the hot path, each beside its plain
+PyTorch version. Kernels build at first use (see :mod:`._build`)."""
+
+from .fused_rollout import (  # noqa: F401
+    LAUNCHES,
+    fused_rollout,
+    fused_rollout_reference,
+    fused_rollout_replay,
+    n_draws_per_step,
+    pack_state,
+    reset_launch_counts,
+    unpack_state,
+)

@@ -1,0 +1,289 @@
+"""Batched, branch-free 2-D rigid-body physics for FutbolEnv in PyTorch.
+
+Counterpart of :mod:`gym_futbol_tpu.physics`, whose module docstring is
+the normative PHYSICS SPEC: substeps of (velocity integration with a
+speed clamp, sequential-impulse contact solve over all circle pairs in
+lexicographic order then the four walls, position integration). This
+port keeps the spec's hot-form floating-point association operation
+for operation: ``inv_d = 1/sqrt(max(d2, 1e-12))``, the ``1e20``
+inactive-contact sentinel, inverse-mass-premultiplied normals, the
+``jn_acc = jn'`` rename and walls solved in velocity units.
+
+Scalar-SSA form: every per-body or per-pair quantity is its own ``[B]``
+tensor held in a Python list, exactly as the JAX package writes it under
+``vmap``. The same arithmetic is the CUDA kernel's in
+``csrc/fused_rollout.cu``.
+
+``1/sqrt`` is written as ``sqrt`` then ``reciprocal`` (both IEEE-rounded
+on the CPU and on CUDA) in place of ``jax.lax.rsqrt``, which is not
+bitwise ``1/sqrt`` on every input; the two differ in the last bit.
+
+Everything is dtype-polymorphic: float32 for the rollout, float64 for
+parity against the C++ oracle.
+"""
+
+from __future__ import annotations
+
+import functools
+from types import SimpleNamespace
+
+import torch
+
+from .types import EnvParams
+
+
+def circle_pairs(n_bodies: int) -> list[tuple[int, int]]:
+    """Fixed lexicographic pair order, the normative sequential order."""
+    return [(i, j) for i in range(n_bodies) for j in range(i + 1, n_bodies)]
+
+
+def dtype_scalar(x: float, dtype: torch.dtype) -> torch.Tensor:
+    """A 0-d CPU tensor holding ``x`` rounded to ``dtype``."""
+    return torch.tensor(x, dtype=torch.float64).to(dtype)
+
+
+def to_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (the value ``jnp.asarray(x, dtype)``
+    holds), as a Python float."""
+    return dtype_scalar(x, dtype).item()
+
+
+@functools.lru_cache(maxsize=64)
+def physics_constants(params: EnvParams, dtype: torch.dtype) -> SimpleNamespace:
+    """Every physics constant as a Python float rounded to ``dtype``.
+
+    Each is formed as the JAX package forms it: a quotient or product
+    written on Python floats there is taken in double and then rounded;
+    one written on ``dtype`` arrays (``damping ** dt_sub``, the pair
+    restitution ``e_i * e_j``, ``-1/(inv_m_i + inv_m_j)``) is taken in
+    ``dtype``.
+    """
+    dt_sub = params.dt / params.substeps
+    inv_ball = dtype_scalar(1.0 / params.ball_mass, dtype)
+    inv_player = dtype_scalar(1.0 / params.player_mass, dtype)
+    e_ball = dtype_scalar(params.ball_elasticity, dtype)
+    e_player = dtype_scalar(params.player_elasticity, dtype)
+    wall_e = dtype_scalar(params.wall_elasticity, dtype)
+    one = dtype_scalar(1.0, dtype)
+    return SimpleNamespace(
+        dt_sub=to_dtype(dt_sub, dtype),
+        damp=(dtype_scalar(params.damping, dtype)
+              ** dtype_scalar(dt_sub, dtype)).item(),
+        max_speed=to_dtype(params.max_speed, dtype),
+        inv_m_ball=inv_ball.item(),
+        inv_m_player=inv_player.item(),
+        r_ball=to_dtype(params.ball_radius, dtype),
+        r_player=to_dtype(params.player_radius, dtype),
+        # contact distances r_i + r_j for ball-player / player-player pairs
+        rr_bp=(dtype_scalar(params.ball_radius, dtype)
+               + dtype_scalar(params.player_radius, dtype)).item(),
+        rr_pp=(dtype_scalar(params.player_radius, dtype)
+               + dtype_scalar(params.player_radius, dtype)).item(),
+        # -k_n for ball-player and player-player pairs
+        nkn_bp=(-(one / (inv_ball + inv_player))).item(),
+        nkn_pp=(-(one / (inv_player + inv_player))).item(),
+        # restitution products for ball-player / player-player pairs
+        e_bp=(e_ball * e_player).item(),
+        e_pp=(e_player * e_player).item(),
+        # per-body wall restitution e_body * e_wall
+        ew_ball=(e_ball * wall_e).item(),
+        ew_player=(e_player * wall_e).item(),
+        mu=to_dtype(params.friction, dtype),
+        slop=to_dtype(params.collision_slop, dtype),
+        bias_coef=to_dtype(params.baumgarte / dt_sub, dtype),
+        width=to_dtype(params.width, dtype),
+        height=to_dtype(params.height, dtype),
+        goal_y_lo=to_dtype(params.goal_y_lo, dtype),
+        goal_y_hi=to_dtype(params.goal_y_hi, dtype),
+    )
+
+
+_EPS2 = 1e-12      # degenerate-distance guard on squared lengths
+_BIG = 1e20        # inactive-contact sentinel (spec item 3)
+
+
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(x).reciprocal()
+
+
+def _solve_contacts_scalar(
+    px: list, py: list, vx: list, vy: list, params: EnvParams, dtype,
+) -> tuple[list, list]:
+    """Spec items 2-3 in scalar-SSA form: returns post-solve (vx, vy)."""
+    c = physics_constants(params, dtype)
+    n = len(px)
+    pairs = circle_pairs(n)
+    inv_m = [c.inv_m_ball] + [c.inv_m_player] * (n - 1)
+    radii = [c.r_ball] + [c.r_player] * (n - 1)
+    mu = c.mu
+
+    # ---- circle-circle precompute (hot-form, spec item 3) ----------------
+    nx_p, ny_p, nxi_p, nyi_p, nxj_p, nyj_p, nkn_p, bmv_p = (
+        [], [], [], [], [], [], [], [])
+    for (i, j) in pairs:
+        dpx = px[j] - px[i]
+        dpy = py[j] - py[i]
+        d2 = dpx * dpx + dpy * dpy
+        inv_d = _rsqrt(d2.clamp_min(_EPS2))
+        dist = d2 * inv_d
+        pen = (c.rr_bp if i == 0 else c.rr_pp) - dist
+        nx = dpx * inv_d
+        ny = dpy * inv_d
+        vrn0 = (vx[j] - vx[i]) * nx + (vy[j] - vy[i]) * ny
+        e = c.e_bp if i == 0 else c.e_pp
+        bounce = e * vrn0.clamp_max(0.0)
+        vbias = c.bias_coef * (pen - c.slop).clamp_min(0.0)
+        nx_p.append(nx)
+        ny_p.append(ny)
+        nxi_p.append(nx * inv_m[i])
+        nyi_p.append(ny * inv_m[i])
+        nxj_p.append(nx * inv_m[j])
+        nyj_p.append(ny * inv_m[j])
+        nkn_p.append(c.nkn_bp if i == 0 else c.nkn_pp)
+        bmv_p.append(torch.where(pen > 0, bounce - vbias, _BIG))
+
+    # ---- wall precompute: order [bottom, top, left, right], stored
+    # negated (v_bias - bounce) with inactive sentinel -BIG ---------------
+    wnbmv = [[None] * n for _ in range(4)]
+    for i in range(n):
+        d = [
+            radii[i] - py[i],
+            radii[i] - (c.height - py[i]),
+            radii[i] - px[i],
+            radii[i] - (c.width - px[i]),
+        ]
+        if i == 0:  # the ball passes through the goal mouth
+            in_mouth = (py[0] >= c.goal_y_lo) & (py[0] <= c.goal_y_hi)
+            d[2] = torch.where(in_mouth, -1.0, d[2])
+            d[3] = torch.where(in_mouth, -1.0, d[3])
+        e_w = c.ew_ball if i == 0 else c.ew_player
+        vrn0_w = [vy[i], -vy[i], vx[i], -vx[i]]
+        for wi in range(4):
+            wbounce = e_w * vrn0_w[wi].clamp_max(0.0)
+            wvbias = c.bias_coef * (d[wi] - c.slop).clamp_min(0.0)
+            wnbmv[wi][i] = torch.where(d[wi] > 0, wvbias - wbounce, -_BIG)
+
+    vx, vy = list(vx), list(vy)
+    zl = torch.zeros_like(vx[0])
+    jn_cc = [zl] * len(pairs)
+    jt_cc = [zl] * len(pairs)
+    jv_w = [[zl] * n for _ in range(4)]
+    jtv_w = [[zl] * n for _ in range(4)]
+    for _ in range(params.solver_iterations):
+        # -- circle-circle, sequential in fixed lexicographic order -------
+        for p, (i, j) in enumerate(pairs):
+            nx, ny = nx_p[p], ny_p[p]
+            nxi, nyi, nxj, nyj = nxi_p[p], nyi_p[p], nxj_p[p], nyj_p[p]
+            vrn = (vx[j] - vx[i]) * nx + (vy[j] - vy[i]) * ny
+            jn_new = (jn_cc[p] + nkn_p[p] * (vrn + bmv_p[p])).clamp_min(0.0)
+            dj = jn_new - jn_cc[p]
+            jn_cc[p] = jn_new
+            vx[i] = vx[i] - dj * nxi
+            vy[i] = vy[i] - dj * nyi
+            vx[j] = vx[j] + dj * nxj
+            vy[j] = vy[j] + dj * nyj
+            # friction, tangent t = (-ny, nx)
+            vrt = (vy[j] - vy[i]) * nx - (vx[j] - vx[i]) * ny
+            djt = nkn_p[p] * vrt
+            lim = mu * jn_new
+            jt_new = torch.clamp(jt_cc[p] + djt, min=-lim, max=lim)
+            djt = jt_new - jt_cc[p]
+            jt_cc[p] = jt_new
+            vx[i] = vx[i] + djt * nyi
+            vy[i] = vy[i] - djt * nxi
+            vx[j] = vx[j] - djt * nyj
+            vy[j] = vy[j] + djt * nxj
+
+        # -- walls in velocity units; bottom/top act on vy (normal) and vx
+        # (friction), left/right the other way round -----------------------
+        for wi in range(4):
+            for i in range(n):
+                if wi == 0:
+                    dv0 = wnbmv[wi][i] - vy[i]
+                elif wi == 1:
+                    dv0 = wnbmv[wi][i] + vy[i]
+                elif wi == 2:
+                    dv0 = wnbmv[wi][i] - vx[i]
+                else:
+                    dv0 = wnbmv[wi][i] + vx[i]
+                jv_new = (jv_w[wi][i] + dv0).clamp_min(0.0)
+                dv = jv_new - jv_w[wi][i]
+                jv_w[wi][i] = jv_new
+                if wi == 0:
+                    vy[i] = vy[i] + dv
+                elif wi == 1:
+                    vy[i] = vy[i] - dv
+                elif wi == 2:
+                    vx[i] = vx[i] + dv
+                else:
+                    vx[i] = vx[i] - dv
+                if wi == 0:
+                    dvt0 = vx[i]
+                elif wi == 1:
+                    dvt0 = -vx[i]
+                elif wi == 2:
+                    dvt0 = -vy[i]
+                else:
+                    dvt0 = vy[i]
+                limv = mu * jv_new
+                jt_new = torch.clamp(jtv_w[wi][i] + dvt0, min=-limv, max=limv)
+                dvt = jt_new - jtv_w[wi][i]
+                jtv_w[wi][i] = jt_new
+                if wi == 0:
+                    vx[i] = vx[i] - dvt
+                elif wi == 1:
+                    vx[i] = vx[i] + dvt
+                elif wi == 2:
+                    vy[i] = vy[i] + dvt
+                else:
+                    vy[i] = vy[i] - dvt
+    return vx, vy
+
+
+def physics_step_scalars(
+    px: list, py: list, vx: list, vy: list, fx: list, fy: list,
+    params: EnvParams, dtype,
+) -> tuple[list, list, list, list]:
+    """The full physics step (``params.substeps`` sub-steps) in
+    scalar-SSA form. Forces are held constant across the sub-steps."""
+    c = physics_constants(params, dtype)
+    n = len(px)
+    inv_m = [c.inv_m_ball] + [c.inv_m_player] * (n - 1)
+    px, py, vx, vy = list(px), list(py), list(vx), list(vy)
+    for _ in range(params.substeps):
+        # spec item 1: velocity integration + speed clamp
+        for i in range(n):
+            nvx = vx[i] * c.damp + fx[i] * inv_m[i] * c.dt_sub
+            nvy = vy[i] * c.damp + fy[i] * inv_m[i] * c.dt_sub
+            s2 = nvx * nvx + nvy * nvy
+            scale = (c.max_speed * _rsqrt(s2.clamp_min(_EPS2))).clamp_max(1.0)
+            vx[i] = nvx * scale
+            vy[i] = nvy * scale
+        # spec items 2-3: contacts
+        vx, vy = _solve_contacts_scalar(px, py, vx, vy, params, dtype)
+        # spec item 4: position integration
+        for i in range(n):
+            px[i] = px[i] + vx[i] * c.dt_sub
+            py[i] = py[i] + vy[i] * c.dt_sub
+    return px, py, vx, vy
+
+
+def physics_step(
+    pos: torch.Tensor, vel: torch.Tensor, forces: torch.Tensor,
+    params: EnvParams,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Advance one env.step of simulated time (``params.dt``).
+
+    pos/vel/forces: ``[B, n_bodies, 2]``. Returns the new (pos, vel).
+    """
+    n = pos.shape[1]
+    px, py, vx, vy = physics_step_scalars(
+        [pos[:, i, 0] for i in range(n)], [pos[:, i, 1] for i in range(n)],
+        [vel[:, i, 0] for i in range(n)], [vel[:, i, 1] for i in range(n)],
+        [forces[:, i, 0] for i in range(n)],
+        [forces[:, i, 1] for i in range(n)],
+        params, pos.dtype,
+    )
+    pos = torch.stack([torch.stack(px, 1), torch.stack(py, 1)], -1)
+    vel = torch.stack([torch.stack(vx, 1), torch.stack(vy, 1)], -1)
+    return pos, vel
