@@ -1,25 +1,42 @@
 """gym_futbol_tpu_torch: the FutbolEnv engine in PyTorch, with its hot
-path as a hand-written CUDA kernel for NVIDIA Hopper.
+paths as hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of :mod:`gym_futbol_tpu` that keeps its module names. It imports
 ``torch`` and never JAX. The batched env (physics, game rules, rewards,
-auto-reset) runs as plain PyTorch on any device; the random-policy
-rollout runs as one CUDA kernel per rollout on a CUDA device
-(:mod:`gym_futbol_tpu_torch.ops.fused_rollout`).
+auto-reset) runs as plain PyTorch on any device; on a CUDA device three
+paths run as one kernel launch each (``ops``): the random-policy rollout
+(``fused_rollout``), self-play PPO collection (``ppo.collect_rollout_fused``
+over ``fused_collect``) and policy-vs-policy evaluation
+(``evaluate.evaluate_fused`` over ``fused_selfplay_rollout``).
 
 Quick start::
 
     import torch
-    from gym_futbol_tpu_torch import EnvParams, ops, vector
+    from gym_futbol_tpu_torch import EnvParams, evaluate, obs_size, ops, ppo, vector
+    from gym_futbol_tpu_torch.models import ActorCritic
 
-    params = EnvParams(players_per_team=2)
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # random-policy rollout
+    params = EnvParams(players_per_team=2)
     state, obs = vector.reset_batch(gen, params, 4096, device="cuda")
     statef, statei = ops.pack_state(state, params)
     statef, statei, rewards = ops.fused_rollout(statef, statei, 1, params, 512)
+
+    # self-play PPO collection and advantages
+    params3 = EnvParams(players_per_team=3)
+    model = ActorCritic(3, obs_size(params3), (256, 256), device="cuda")
+    cfg = ppo.PPOConfig(rollout_steps=128)
+    runner = ppo.init_runner(gen, model, params3, cfg, n_envs=16384)
+    runner, traj, last_value = ppo.collect_rollout_fused(runner, params3, cfg)
+    adv, returns = ppo.compute_gae(traj, last_value, cfg)
+
+    # policy-vs-policy evaluation
+    w = ops.init_mlp(gen, params, (128, 128), device="cuda")
+    metrics = evaluate.evaluate_fused(params, w, n_envs=4096, n_steps=512)
 """
 
-from .env import observe, obs_size, reset, step
+from .env import mirror_actions, mirror_obs, observe, obs_size, reset, step
 from .types import EnvParams, EnvState, RewardConfig, StepOutput
 
 __version__ = "0.1.0"
@@ -33,5 +50,7 @@ __all__ = [
     "step",
     "observe",
     "obs_size",
+    "mirror_obs",
+    "mirror_actions",
     "__version__",
 ]

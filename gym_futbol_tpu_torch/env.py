@@ -58,6 +58,37 @@ def obs_size(params: EnvParams) -> int:
     return 4 * params.n_bodies + 2
 
 
+def mirror_obs(obs: torch.Tensor, params: EnvParams) -> torch.Tensor:
+    """Present team 1 with a team-0 view: position x -> 1 - x, velocity
+    x -> -vx, the team blocks swapped (ball, team 1, team 0) and the two
+    possession flags swapped, so one policy can play either side.
+    ``obs``: ``[.., 4*n_bodies + 2]`` (OBSERVATION SPEC)."""
+    n = params.n_bodies
+    ppt = params.players_per_team
+    order = [0, *range(1 + ppt, 1 + 2 * ppt), *range(1, 1 + ppt)]
+    lead = obs.shape[:-1]
+    pos = obs[..., :2 * n].reshape(*lead, n, 2)[..., order, :]
+    vel = obs[..., 2 * n:4 * n].reshape(*lead, n, 2)[..., order, :]
+    pos = torch.stack([1.0 - pos[..., 0], pos[..., 1]], -1)
+    vel = torch.stack([-vel[..., 0], vel[..., 1]], -1)
+    flags = obs[..., 4 * n:].flip(-1)
+    return torch.cat([pos.reshape(*lead, 2 * n), vel.reshape(*lead, 2 * n),
+                      flags], -1)
+
+
+def mirror_dir(d: torch.Tensor) -> torch.Tensor:
+    """A direction index in the other frame: left and right (2 <-> 4)
+    swap."""
+    return torch.where(d == 2, 4, torch.where(d == 4, 2, d))
+
+
+def mirror_actions(actions: torch.Tensor) -> torch.Tensor:
+    """Map team actions between the mirrored frame and the world frame:
+    the directions of slot 0 mirror (:func:`mirror_dir`); the act slot is
+    frame-independent. ``actions``: ``[.., n, 2]`` int."""
+    return torch.stack([mirror_dir(actions[..., 0]), actions[..., 1]], -1)
+
+
 def kickoff_positions(noise: torch.Tensor, params: EnvParams) -> torch.Tensor:
     """Kickoff placement from noise ``[B, n_bodies, 2]`` in [-1, 1]:
     returns positions ``[B, n_bodies, 2]`` (velocities are zero)."""

@@ -11,3 +11,13 @@ from .fused_rollout import (  # noqa: F401
     reset_launch_counts,
     unpack_state,
 )
+from .fused_actor import (  # noqa: F401
+    fused_selfplay_rollout,
+    fused_selfplay_rollout_reference,
+    init_mlp,
+)
+from .fused_collect import (  # noqa: F401
+    flatten_actor_critic,
+    fused_collect,
+    fused_collect_reference,
+)

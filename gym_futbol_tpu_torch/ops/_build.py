@@ -1,13 +1,16 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-At first use, :func:`load` compiles ``gym_futbol_tpu_torch/csrc/*.cu``
+At first use, :func:`load` compiles each ``gym_futbol_tpu_torch/csrc/*.cu``
+to an object file, all nvcc processes started together, and links them
 into one shared library with a plain C interface, under
-``build/torch_kernels/`` at the repository root, named by a hash of the
-sources and flags; a later call in any process reuses it. The library
-file is written under a temporary name and renamed into place, so two
-processes building at once do not see a half-written file. nvcc's
-output, ``-Xptxas -v`` register and spill report included, is kept
-beside the library as ``<library>.log``.
+``build/torch_kernels/`` at the repository root. The library is named
+by a hash of the flags and of every source, the shared headers
+(``csrc/*.cuh``) included, so an edit to any of them builds a new
+library; a later call in any process reuses it. The library file is
+written under a temporary name and renamed into place, so two processes
+building at once do not see a half-written file. nvcc's output,
+``-Xptxas -v`` register and spill report included, is kept beside the
+library as ``<library>.log``.
 
 Nothing here runs at import: the CPU tests import the package freely.
 """
@@ -27,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # No fast math, and no contraction of a*b+c into FMAs that the plain
     # PyTorch version never does.
     "--fmad=false",
@@ -37,8 +40,8 @@ NVCC_FLAGS = (
 _LIB: ctypes.CDLL | None = None
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def _sources(csrc_dir: str = CSRC_DIR, pattern: str = "*.cu") -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc_dir, pattern)))
 
 
 def _nvcc() -> str:
@@ -49,10 +52,11 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> str:
-    """Where the library for the current sources lives."""
+def library_path(csrc_dir: str = CSRC_DIR) -> str:
+    """Where the library for the sources and headers in ``csrc_dir``
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc_dir, "*.cu") + _sources(csrc_dir, "*.cuh"):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode())
             h.update(f.read())
@@ -65,13 +69,34 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = f"{path}.{os.path.basename(src)}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+    tmp = f"{path}.{tag}"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(f"{path}.log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)
     return path
 
@@ -84,6 +109,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
     f32p = ctypes.POINTER(ctypes.c_float)
+    i32p = ctypes.POINTER(ctypes.c_int)
     lib.futbol_kernel_num_consts.argtypes = []
     lib.futbol_kernel_num_consts.restype = i
     lib.futbol_fused_rollout_random.argtypes = [
@@ -105,5 +131,35 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_rollout_replay.restype = i
+    lib.futbol_fused_collect.argtypes = [
+        p, p, p, p,           # statef, statei in; statef, statei out
+        p, i32p, i,           # flat weights, layer table [n, 4], n_layers
+        p, p, p, p, p, p, p,  # obs, dirs, acts, logp, value, reward, done
+        p,                    # last_value
+        p,                    # uniforms table or NULL
+        ctypes.c_uint32,      # seed
+        i, i, i, i,           # n_bodies, B, T, F_pad
+        i, i, i,              # substeps, solver_iterations, max_steps
+        f32p, i,              # host constants, count
+        f32p,                 # observation scales (1/w, 1/h, 1/max_speed)
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_fused_collect.restype = i
+    lib.futbol_fused_selfplay.argtypes = [
+        p, p, p, p,           # statef, statei in; statef, statei out
+        p, i32p,              # policy A: flat weights, layer table
+        p, i32p,              # policy B: flat weights, layer table
+        i,                    # n_layers (both)
+        p, p,                 # reward, goals
+        p, p,                 # packed dirs, acts [T, 2, B] or NULL
+        p,                    # uniforms table or NULL
+        ctypes.c_uint32,      # seed
+        i, i, i,              # n_bodies, B, T
+        i, i, i,              # substeps, solver_iterations, max_steps
+        f32p, i,              # host constants, count
+        f32p,                 # observation scales
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_fused_selfplay.restype = i
     _LIB = lib
     return lib

@@ -27,9 +27,10 @@ from .. import env as env_core
 from ..physics import dtype_scalar, physics_constants, to_dtype
 from ..types import EnvParams, EnvState
 
-# Kernel launches by wrapper name; each wrapper adds one where it
-# launches its kernel.
-LAUNCHES = {"fused_rollout": 0, "fused_rollout_replay": 0}
+# Kernel launches by wrapper name, for every kernel of the package; each
+# wrapper adds one where it launches its kernel.
+LAUNCHES = {"fused_rollout": 0, "fused_rollout_replay": 0,
+            "fused_collect": 0, "fused_selfplay_rollout": 0}
 
 
 def reset_launch_counts() -> None:
@@ -140,6 +141,20 @@ def philox_uniforms(seed: int, step: int, n_draws: int, n_envs: int,
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def step_uniforms(uniforms, seed, k: int, n_draws: int, b: int, device):
+    """Step ``k``'s draws ``[n_draws, B]``: the table's, or Philox's."""
+    if uniforms is not None:
+        return uniforms[k]
+    return philox_uniforms(seed, k, n_draws, b, device)
+
+
+def split_state(statef: torch.Tensor, statei: torch.Tensor, n: int):
+    """(px, py, vx, vy per-body row lists, possession, score0, score1, t)."""
+    return ([statef[i] for i in range(n)], [statef[n + i] for i in range(n)],
+            [statef[2 * n + i] for i in range(n)],
+            [statef[3 * n + i] for i in range(n)], *statei)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -170,11 +185,7 @@ def fused_rollout_reference(
         n_steps = uniforms.shape[0]
     kick_noise = to_dtype(params.kick_noise, statef.dtype)
 
-    px = [statef[i] for i in range(n)]
-    py = [statef[n + i] for i in range(n)]
-    vx = [statef[2 * n + i] for i in range(n)]
-    vy = [statef[3 * n + i] for i in range(n)]
-    poss, s0, s1, t = statei[0], statei[1], statei[2], statei[3]
+    px, py, vx, vy, poss, s0, s1, t = split_state(statef, statei, n)
     rewards = []
     for k in range(n_steps):
         if actions is not None:
@@ -183,9 +194,8 @@ def fused_rollout_reference(
             theta = torch.zeros_like(px[0])
             noise_x = noise_y = [theta] * n
         else:
-            u = (uniforms[k] if uniforms is not None else
-                 philox_uniforms(seed, k, n_draws, b, statef.device))
-            rows = iter(u)
+            rows = iter(step_uniforms(uniforms, seed, k, n_draws, b,
+                                      statef.device))
             dirs = [_randint5_from(next(rows)) for _ in range(n_players)]
             acts = [_randint5_from(next(rows)) for _ in range(n_players)]
             theta = _normal_from(next(rows), next(rows)) * kick_noise
@@ -211,7 +221,7 @@ def fused_rollout_reference(
 # The kernel's constants
 # ---------------------------------------------------------------------------
 
-# Field order of ``struct Consts`` in csrc/fused_rollout.cu.
+# Field order of ``struct Consts`` in csrc/futbol_step.cuh.
 KERNEL_CONSTANT_NAMES = (
     "dt_sub", "damp", "max_speed", "inv_m_ball", "inv_m_player", "r_ball",
     "r_player", "rr_bp", "rr_pp", "nkn_bp", "nkn_pp", "e_bp", "e_pp",
@@ -293,8 +303,23 @@ def _check_state(statef: torch.Tensor, statei: torch.Tensor,
     return b
 
 
-def _kernel_args(statef, statei, params: EnvParams, n_steps: int):
-    """Common checks and outputs for a kernel launch on CUDA tensors."""
+def check_uniforms(uniforms, n_steps: int, params: EnvParams, statef) -> None:
+    """A uniforms table must be f32 ``[n_steps, n_draws, B]`` on the
+    state's device (and contiguous for the kernel)."""
+    if uniforms is None:
+        return
+    shape = (n_steps, n_draws_per_step(params), statef.shape[1])
+    if tuple(uniforms.shape) != shape or uniforms.dtype != torch.float32:
+        raise ValueError(f"uniforms must be float32 {shape}")
+    if uniforms.device != statef.device:
+        raise ValueError("uniforms must be on the state's device")
+    if statef.device.type == "cuda" and not uniforms.is_contiguous():
+        raise ValueError("uniforms must be contiguous")
+
+
+def _kernel_args(statef, statei, params: EnvParams):
+    """Common checks and arguments for a kernel launch on CUDA tensors:
+    (B, the constants as a ctypes array, the current stream)."""
     if statef.device.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {statef.device}")
     if params.players_per_team > _MAX_PPT:
@@ -303,14 +328,17 @@ def _kernel_args(statef, statei, params: EnvParams, n_steps: int):
         raise ValueError("statef and statei must be contiguous")
     if statef.shape[1] == 0:
         raise ValueError("the batch must hold at least one env")
-    b = statef.shape[1]
     consts = kernel_constants(params)
     c_consts = (ctypes.c_float * len(consts))(*consts.values())
-    outs = (torch.empty_like(statef), torch.empty_like(statei),
-            torch.empty((n_steps, b), dtype=torch.float32,
-                        device=statef.device))
     stream = torch.cuda.current_stream(statef.device).cuda_stream
-    return b, c_consts, outs, stream
+    return statef.shape[1], c_consts, stream
+
+
+def _state_and_reward_out(statef, statei, n_steps: int):
+    """Empty outputs (statef', statei', rewards ``[n_steps, B]``)."""
+    return (torch.empty_like(statef), torch.empty_like(statei),
+            torch.empty((n_steps, statef.shape[1]), dtype=torch.float32,
+                        device=statef.device))
 
 
 def _raise_on_error(err: int, name: str) -> None:
@@ -329,23 +357,16 @@ def fused_rollout(
     given. Returns (statef', statei', rewards ``[n_steps, B]``): the
     team-0 shaped reward of each step.
     """
-    b = _check_state(statef, statei, params)
-    if uniforms is not None:
-        shape = (n_steps, n_draws_per_step(params), b)
-        if tuple(uniforms.shape) != shape or uniforms.dtype != torch.float32:
-            raise ValueError(f"uniforms must be float32 {shape}")
-        if uniforms.device != statef.device:
-            raise ValueError("uniforms must be on the state's device")
+    _check_state(statef, statei, params)
+    check_uniforms(uniforms, n_steps, params, statef)
     if statef.device.type == "cpu":
         if uniforms is not None:
             return fused_rollout_reference(statef, statei, params,
                                            uniforms=uniforms)
         return fused_rollout_reference(statef, statei, params, n_steps,
                                        seed=seed)
-    if uniforms is not None and not uniforms.is_contiguous():
-        raise ValueError("uniforms must be contiguous")
-    b, c_consts, (sf, si, rew), stream = _kernel_args(
-        statef, statei, params, n_steps)
+    b, c_consts, stream = _kernel_args(statef, statei, params)
+    sf, si, rew = _state_and_reward_out(statef, statei, n_steps)
     from . import _build
 
     lib = _build.load()
@@ -380,8 +401,8 @@ def fused_rollout_replay(
         return fused_rollout_reference(statef, statei, params, actions=actions)
     if not actions.is_contiguous():
         raise ValueError("actions must be contiguous")
-    b, c_consts, (sf, si, rew), stream = _kernel_args(
-        statef, statei, params, n_steps)
+    b, c_consts, stream = _kernel_args(statef, statei, params)
+    sf, si, rew = _state_and_reward_out(statef, statei, n_steps)
     from . import _build
 
     lib = _build.load()

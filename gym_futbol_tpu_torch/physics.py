@@ -12,7 +12,7 @@ inactive-contact sentinel, inverse-mass-premultiplied normals, the
 Scalar-SSA form: every per-body or per-pair quantity is its own ``[B]``
 tensor held in a Python list, exactly as the JAX package writes it under
 ``vmap``. The same arithmetic is the CUDA kernel's in
-``csrc/fused_rollout.cu``.
+``csrc/futbol_step.cuh``.
 
 ``1/sqrt`` is written as ``sqrt`` then ``reciprocal`` (both IEEE-rounded
 on the CPU and on CUDA) in place of ``jax.lax.rsqrt``, which is not
