@@ -13,10 +13,22 @@ port's main paths:
   the collect against the actor-critic module, Philox sampling
   statistics, then PPO collection + GAE at bench config 4 (3v3, 16384
   envs, T=128, hidden (256, 256)) and fused evaluation at bench config 6
-  (2v2, 4096 envs, T=512, two (128, 128) MLPs).
+  (2v2, 4096 envs, T=512, two (128, 128) MLPs);
+- phases 11-13, PPO training (fused_minibatch_grad): the update kernels
+  against their plain version and against autograd on a real minibatch
+  (a collected buffer, after one iteration's updates have moved the
+  weights, so that both clips decide some samples' gradients), then
+  train_iteration at bench config 4 (fused collect, GAE, 4 epochs x 4
+  minibatches of 2^20 samples on the kernels) and once through the
+  training CLI, then the kernels' times.
 One line per phase; any failed phase exits nonzero with no result line.
 The last two lines are the kernels' record and ``{"ok": true, "device":
-{...}}``.
+{...}}``. Each kernel's ``bound_ms`` is the least time the card could
+take for its work on this run's inputs: the larger of its bytes (each
+input read once, each output written once) over the memory rate and its
+operations over the peak rate of their type (H100 SXM data sheet, 700
+W); operations are counted by hand from the shapes (env_step_ops,
+mlp_ops and K3's layer products).
 
 Run from the repository root:  python3 chip_smoke.py
 It needs a CUDA device and nvcc, and imports nothing of JAX.
@@ -24,6 +36,8 @@ It needs a CUDA device and nvcc, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
+import importlib
 import json
 import math
 import os
@@ -41,12 +55,17 @@ T_STATS = 64
 T_FORCED = 32
 SOURCE = "gym_futbol_tpu_torch/csrc/fused_rollout.cu"
 POLICY_SOURCE = "gym_futbol_tpu_torch/csrc/fused_policy.cu"
+UPDATE_SOURCE = "gym_futbol_tpu_torch/csrc/fused_update.cu"
 REPLACES = {
     "fused_rollout": "gym_futbol_tpu/ops/fused_rollout.py:342",
     "fused_rollout_replay": "gym_futbol_tpu/ops/fused_rollout.py:487",
     "fused_collect": "gym_futbol_tpu/ops/fused_collect.py:304",
     "fused_selfplay_rollout": "gym_futbol_tpu/ops/fused_actor.py:237",
+    "fused_minibatch_grad": "gym_futbol_tpu/ops/fused_update.py:255",
 }
+# H100 SXM peaks (NVIDIA data sheet, 700 W): memory, float32 on the CUDA
+# cores, dense bfloat16 on the tensor cores.
+HBM_BYTES_PER_S, F32_PER_S, BF16_PER_S = 3.35e12, 67e12, 989e12
 # Kernel against plain version on the same inputs: pos/vel rtol 1e-4 /
 # atol 1e-3, rewards 1e-4 absolute, integer state exact.
 RTOL, ATOL, REW_ATOL = 1e-4, 1e-3, 1e-4
@@ -56,6 +75,15 @@ RTOL, ATOL, REW_ATOL = 1e-4, 1e-3, 1e-4
 # actor-critic module (cuBLAS f32 with TF32 off, another summation
 # order): 1e-4; the kernel's mirrored view against mirror_obs: 1e-6.
 POLICY_ATOL, FORCED_ATOL, MIRROR_ATOL = 1e-4, 1e-4, 1e-6
+# The update kernels (fused_minibatch_grad) against their plain version
+# on the same inputs, per gradient leaf rel-L2: float32 sums in another
+# order only; bfloat16 the same rounding points, so only the summation
+# order and the rare one-ulp bfloat16 flips of an operand that it causes.
+# Against autograd of ppo_loss through the module (float32, TF32 off):
+# another formulation of the same sums. Metric sums: error relative to
+# the plain version's sum of |per-sample term| (compare_update).
+K3_F32_REL, K3_BF16_REL, K3_AUTOGRAD_REL, K3_METRIC_REL = 1e-4, 1e-3, 1e-4, 1e-4
+K3_BLOCK = 1024             # PPOConfig.shuffle_block
 
 
 class SmokeFailure(RuntimeError):
@@ -127,8 +155,6 @@ def policy_phases(dev, custom) -> list[dict]:
     fused_selfplay_rollout) against their plain versions, the
     teacher-forced check, sampling statistics and the main path. Returns
     the two kernels' entries of the kernels line."""
-    import importlib
-
     import torch
 
     from gym_futbol_tpu_torch import EnvParams, evaluate, obs_size, ops, ppo, vector
@@ -363,20 +389,371 @@ def policy_phases(dev, custom) -> list[dict]:
           f"{ms_plain4:.1f} ms, {B4 * t_plain / ms_plain4 * 1e3:.6g} env-steps/s")
     phase("10 plain", f"evaluate, config 6 T={t_plain}: {ms_plain6:.1f} ms, "
           f"{B6 * t_plain / ms_plain6 * 1e3:.6g} env-steps/s")
+    # bounds per step: state and weights read, state written once per
+    # call; K2's obs, per-step rows and bootstrap values, K4's rewards
+    # and goals written once. Operations: the env step, and the MLP of
+    # both views (K2: one actor-critic; K4: each team's policy)
+    ops_k2 = env_step_ops(p4) + 2 * mlp_ops(w4)
+    bytes_k2 = (2 * nbytes(sf4, si4) + nbytes(*w4)
+                + 4 * 2 * B4 * (fc.feature_rows(p4) * T4 + 6 * T4 + 1))
+    bound_k2 = bound(bytes_k2 / T4, B4 * ops_k2)
+    ops_k4 = env_step_ops(p6) + mlp_ops(wa6) + mlp_ops(wb6)
+    bytes_k4 = (2 * nbytes(sf6, si6) + nbytes(*wa6, *wb6)
+                + 4 * B6 * (T6 + 2))
+    bound_k4 = bound(bytes_k4 / T6, B6 * ops_k4)
+    phase("10 bound", f"fused_collect: {ops_k2} operations per env-step -> "
+          f"{bound_k2[0]:.6g} ms/step ({bound_k2[1]}); fused_selfplay_rollout: "
+          f"{ops_k4} -> {bound_k4[0]:.6g} ms/step ({bound_k4[1]})")
     return [
         {"name": "fused_collect", "route": "cuda", "source": POLICY_SOURCE,
          "replaces": REPLACES["fused_collect"],
          "launches": launches["fused_collect"],
          "max_abs_err": errs["fused_collect"], "ms": ms_k2 / T4,
-         "plain_ms": plain_k2,
+         "plain_ms": plain_k2, "bound_ms": bound_k2[0],
+         "bound_by": bound_k2[1], "library_ms": None,
          "unit": f"ms per step of the {B4}-env 3v3 batch, hidden {H4}"},
         {"name": "fused_selfplay_rollout", "route": "cuda",
          "source": POLICY_SOURCE, "replaces": REPLACES["fused_selfplay_rollout"],
          "launches": launches["fused_selfplay_rollout"],
          "max_abs_err": errs["fused_selfplay_rollout"], "ms": ms_k4 / T6,
-         "plain_ms": plain_k4,
+         "plain_ms": plain_k4, "bound_ms": bound_k4[0],
+         "bound_by": bound_k4[1], "library_ms": None,
          "unit": f"ms per step of the {B6}-env 2v2 batch, two MLPs {H6}"},
     ]
+
+
+def compare_update(kernel_out, other_out, terms, label: str,
+                   grad_rel: float, metric_rel: float) -> float:
+    """Gradients and metric sums of fused_minibatch_grad against another
+    computation of them: per leaf the max abs error and the rel-L2
+    (within ``grad_rel``); each metric sum's error relative to the sum
+    of |per-sample term| in ``terms`` (the plain version's, within
+    ``metric_rel``: the surrogate's terms cancel in the sum). Returns the
+    largest absolute gradient error."""
+    import torch
+
+    (kg, km), (pg, pm) = kernel_out, other_out
+    check(len(kg) == len(pg), f"{label}: leaf count")
+    leaves, worst_abs, worst_rel = [], 0.0, 0.0
+    for k, p in zip(kg, pg):
+        check(k.shape == p.shape, f"{label}: shapes differ")
+        check(bool(torch.isfinite(k).all()), f"{label}: non-finite gradient")
+        err = (k - p).abs().max().item()
+        rel = ((k - p).norm() / p.norm().clamp_min(1e-30)).item()
+        leaves.append(f"{err:.3g}/{rel:.3g}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    m_err = {k: abs(km[k].item() - pm[k].item())
+             / max(terms[k].abs().sum().item(), 1e-30) for k in km}
+    phase("parity", f"{label}: per leaf max|err|/rel-L2 {' '.join(leaves)}; "
+          f"metric sums err " + ", ".join(f"{k} {e:.3g}" for k, e in m_err.items()))
+    check(worst_rel <= grad_rel and max(m_err.values()) <= metric_rel,
+          f"{label}: disagrees (rel-L2 {worst_rel:.3g} > {grad_rel} or metrics "
+          f"{max(m_err.values()):.3g} > {metric_rel})")
+    return worst_abs
+
+
+def update_minibatch(dev, params, hidden, n_envs, n_steps, block, mb_blocks,
+                     seed):
+    """A real minibatch for fused_minibatch_grad: a fused collect of
+    ``n_envs`` x ``n_steps`` by a fresh ActorCritic and its GAE, cut into
+    blocks as update_epochs_fused cuts it; ``mb_blocks`` blocks in
+    permuted order. The weights are those after one iteration's updates
+    on that buffer (update_epochs_fused), not those that collected it, so
+    that the ratio and the value move past their clips as in the main
+    path's later minibatches. Returns (model, cfg, args, kw)."""
+    import torch
+
+    from gym_futbol_tpu_torch import obs_size, ppo
+    from gym_futbol_tpu_torch.models.policy import ActorCritic
+
+    fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = ActorCritic(params.players_per_team, obs_size(params), hidden,
+                        device=dev)
+    cfg = ppo.PPOConfig(rollout_steps=n_steps, shuffle_block=block)
+    runner = ppo.init_runner(gen, model, params, cfg, n_envs)
+    runner, traj, last_v = ppo.collect_rollout_fused(runner, params, cfg)
+    adv, ret = ppo.compute_gae(traj, last_v, cfg)
+    ppo.update_epochs_fused(model, runner.optimizer, traj, adv, ret, gen, cfg)
+    n_blocks = traj.obs.shape[1] // block
+    dirs, acts, logp, value, adv, ret = (
+        ppo._flatten_tm(x).reshape(n_blocks, block).contiguous()
+        for x in (traj.dirs, traj.acts, traj.logp, traj.value, adv, ret))
+    order = torch.randperm(n_blocks, generator=gen, device=dev)
+    idx = order[:mb_blocks].to(torch.int32).contiguous()
+    adv_mb = adv[idx]
+    adv_n = (adv_mb - adv_mb.mean()) / (adv_mb.std(correction=0) + 1e-8)
+    args = (fc.flatten_actor_critic(model), traj.obs.contiguous(), dirs, acts,
+            logp, value, ret, adv_n, idx)
+    kw = dict(n_torso=len(hidden), clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef,
+              ent_coef=cfg.ent_coef, block=block)
+    return model, cfg, args, kw
+
+
+def update_phases(dev, custom) -> dict:
+    """Phases 11-13: fused_minibatch_grad against its plain version and
+    autograd, PPO training at config 4 through train_iteration and the
+    CLI, and the kernels' times. Returns K3's entry of the kernels line."""
+    import torch
+
+    from gym_futbol_tpu_torch import EnvParams, obs_size, ops, ppo
+    from gym_futbol_tpu_torch.models.policy import ActorCritic
+
+    fu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    p4, p6 = EnvParams(players_per_team=3), EnvParams(players_per_team=2)
+    mb4 = 2 * B4 * T4 // K3_BLOCK // 4      # config 4's minibatch, in blocks
+
+    # 11: kernel vs plain version on real minibatches, both modes
+    cases = (
+        (f"config 4 3v3 {H4} block {K3_BLOCK}", p4, H4, B4, T4, K3_BLOCK, mb4),
+        ("custom (32, 16)", custom, (32, 16), B3, 8, K3_BLOCK, 16),
+        ("2v2 (128, 128) block 128", p6, (128, 128), 1024, 16, 128, 64),
+    )
+    for n, (label, params, hidden, n_envs, n_steps, block, mb_blocks) in enumerate(
+            cases):
+        model, cfg, args, kw = update_minibatch(
+            dev, params, hidden, n_envs, n_steps, block, mb_blocks, 10 + n)
+        tag = f"11 {label}, {mb_blocks} blocks ({mb_blocks * block} samples)"
+        got, terms = {}, {}
+        for mode, tol in ((bf16, K3_BF16_REL), (f32, K3_F32_REL)):
+            got[mode] = ops.fused_minibatch_grad(*args, **kw, compute_dtype=mode)
+            plain_grads, terms[mode] = fu.fused_minibatch_grad_reference(
+                *args, **kw, compute_dtype=mode, per_sample=True)
+            err = compare_update(
+                got[mode], (plain_grads, {k: terms[mode][k].sum() for k in fu.METRICS}),
+                terms[mode], f"{tag}, {str(mode)[6:]}", tol, K3_METRIC_REL)
+            again = ops.fused_minibatch_grad(*args, **kw, compute_dtype=mode)
+            same = all(torch.equal(a, b) for a, b in zip(got[mode][0], again[0]))
+            same &= all(torch.equal(got[mode][1][m], again[1][m]) for m in fu.METRICS)
+            check(same, f"{tag}: two calls differ")
+            if n == 0 and mode is bf16:
+                k3_err = err
+        gap = max(((a - b).norm() / b.norm()).item()
+                  for a, b in zip(got[bf16][0], got[f32][0]))
+        clip = {k: terms[bf16][k].mean().item() for k in ("pg_clip", "v_clip")}
+        phase("11 parity", f"{tag}: identical across two calls in both modes; "
+              f"bfloat16-to-float32 gap of the kernel, largest leaf rel-L2 "
+              f"{gap:.3g}; share of samples whose gradient the clip zeroes: "
+              f"surrogate {clip['pg_clip']:.4g}, value {clip['v_clip']:.4g}")
+        # at the main path's shape both clips must decide some gradients
+        # (the small cases' returns stay inside the value clip)
+        check(n > 0 or min(clip.values()) > 0, f"{tag}: a clip decides no sample")
+        if n == 0:
+            # f32 kernel vs autograd of ppo_loss through the module
+            obs_fm, dirs, acts, logp, value, ret, adv_n, idx = args[1:]
+            m = idx.shape[0] * K3_BLOCK
+            sel = idx.long()
+            obs = obs_fm.reshape(obs_fm.shape[0], -1, K3_BLOCK)[:, sel].reshape(-1, m)
+            model.zero_grad()
+            loss, lm = ppo.ppo_loss(model, obs, *(x[sel].reshape(m) for x in (
+                dirs, acts, logp, value)), adv_n.reshape(m), ret[sel].reshape(m),
+                cfg)
+            loss.backward()
+            auto = (tuple(g for layer in model.dense_layers() for g in (
+                layer.weight.grad.t(), layer.bias.grad[:, None])),
+                {k: lm[k].detach() * m for k in fu.METRICS})
+            compare_update(got[f32], auto, terms[f32], f"{tag}, float32 vs "
+                           f"autograd of ppo_loss", K3_AUTOGRAD_REL, K3_METRIC_REL)
+            k3_args, k3_kw = args, kw
+
+    # 12: the main path: train_iteration at config 4 on both kernels
+    ops.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = ActorCritic(p4.players_per_team, obs_size(p4), H4, device=dev)
+    cfg = ppo.PPOConfig(rollout_steps=T4)
+    runner = ppo.init_runner(gen, model, p4, cfg, B4)
+    spans = {"collect": [], "update": []}
+
+    def timed(fn, name):
+        def run(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    step = functools.partial(
+        ppo.train_iteration, collect_fn=timed(ppo.collect_rollout_fused, "collect"),
+        update_fn=timed(ppo.update_epochs_fused, "update"))
+    first = [p.detach().clone() for p in model.parameters()]
+    runner, _ = step(runner, p4, cfg)                            # warm-up
+    n_iters, per_iter = 3, cfg.epochs * cfg.minibatches
+    check(ops.LAUNCHES["fused_minibatch_grad"] == per_iter,
+          f"12: {ops.LAUNCHES['fused_minibatch_grad']} update launches in one "
+          f"iteration, not {per_iter}")
+    totals, history = [], []
+    for i in range(n_iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        runner, metrics = step(runner, p4, cfg)
+        end.record()
+        totals.append((start, end))
+        history.append(metrics)
+        check(ops.LAUNCHES["fused_minibatch_grad"] == per_iter * (i + 2),
+              "12: update launches per iteration")
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in ("fused_collect", "fused_minibatch_grad")}
+    check(launches["fused_collect"] == n_iters + 1,
+          f"12: the main path's collect launches: {launches}")
+    ms = sum(s.elapsed_time(e) for s, e in totals) / n_iters
+    ms_collect = sum(s.elapsed_time(e) for s, e in spans["collect"][1:]) / n_iters
+    ms_update = sum(s.elapsed_time(e) for s, e in spans["update"][1:]) / n_iters
+    values = {k: [float(m[k]) for m in history] for k in history[0]}
+    check(all(math.isfinite(v) for vs in values.values() for v in vs),
+          f"12: non-finite metrics {values}")
+    moved = [not torch.equal(a, b) for a, b in zip(first, model.parameters())]
+    check(all(moved), "12: a parameter did not change")
+    phase("12 main path", f"train_iteration (collect_rollout_fused, compute_gae, "
+          f"update_epochs_fused bfloat16), 3v3 B={B4} T={T4} hidden {H4}, "
+          f"{cfg.epochs} x {cfg.minibatches} minibatches of "
+          f"{2 * B4 * T4 // cfg.minibatches} samples: {ms:.3f} ms/iteration, "
+          f"{B4 * T4 / ms * 1e3:.6g} env-steps/s ({n_iters} iterations after "
+          f"1 warm-up); collect {ms_collect:.3f} ms, update {ms_update:.3f} ms, "
+          f"GAE and the rest {ms - ms_collect - ms_update:.3f} ms")
+    phase("12 main path", "metrics per iteration: " + "; ".join(
+        f"{k} " + " ".join(f"{v:.5g}" for v in vs) for k, vs in values.items()))
+    phase("12 main path", f"kernel launches in the main path: {launches}")
+
+    argv = ["--ppt", "3", "--envs", str(B4), "--iters", "2", "--fused-collect"]
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "gym_futbol_tpu_torch.train",
+                          *argv], capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    records = [json.loads(x) for x in cli.stdout.splitlines() if x.startswith("{")]
+    phase("12 CLI", f"python -m gym_futbol_tpu_torch.train {' '.join(argv)}: "
+          f"exit {cli.returncode} in {time.perf_counter() - t0:.1f} s; "
+          + " | ".join(json.dumps(r) for r in records))
+    check(cli.returncode == 0, f"12: the CLI failed: {cli.stderr[-2000:]}")
+    check(len(records) == 3 and [r.get("step") for r in records[:2]] == [0, 1]
+          and records[2].get("done") is True, "12: the CLI's records")
+
+    # 13: the kernels alone at config 4's minibatch, and the plain version
+    ms_bf16 = time_cuda(lambda i: ops.fused_minibatch_grad(
+        *k3_args, **k3_kw, compute_dtype=bf16), 5)
+    ms_f32 = time_cuda(lambda i: ops.fused_minibatch_grad(
+        *k3_args, **k3_kw, compute_dtype=f32), 3)
+    plain_bf16 = time_cuda(lambda i: fu.fused_minibatch_grad_reference(
+        *k3_args, **k3_kw, compute_dtype=bf16), 2)
+    plain_f32 = time_cuda(lambda i: fu.fused_minibatch_grad_reference(
+        *k3_args, **k3_kw, compute_dtype=f32), 2)
+    # bound: the minibatch's obs columns, per-sample rows and idx read
+    # once, weights read and gradients written once; the layer products'
+    # multiply-adds on the tensor cores, the value head's in float32
+    w, obs_fm = k3_args[0], k3_args[1]
+    m, f = mb4 * K3_BLOCK, w[0].shape[0]
+    dims = [f, *H4]
+    g5 = w[-4].shape[1]
+    layer_macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    head_macs = dims[-1] * g5
+    # forward: layers + logits; backward: dh and dW of the logits head and
+    # of every layer but the first, whose dW alone is needed
+    bf16_macs = (layer_macs + head_macs) + 2 * head_macs + 2 * layer_macs - dims[0] * dims[1]
+    f32_macs = 3 * dims[-1]                       # value head: v, dh, dW
+    bytes_k3 = (obs_fm.shape[0] * m * 4 + 6 * m * 4 + mb4 * 4
+                + 2 * nbytes(*w) + 16)
+    bound_bf16 = bound(bytes_k3, 2 * f32_macs * m, 2 * bf16_macs * m)
+    bound_f32 = bound(bytes_k3, 2 * (bf16_macs + f32_macs) * m)
+    phase("13 kernels", f"fused_minibatch_grad, config 4 minibatch of {m} "
+          f"samples: bfloat16 {ms_bf16:.3f} ms (bound {bound_bf16[0]:.4g} ms, "
+          f"{bound_bf16[1]}), float32 {ms_f32:.3f} ms (bound {bound_f32[0]:.4g} "
+          f"ms); plain version bfloat16 {plain_bf16:.3f} ms, float32 "
+          f"{plain_f32:.3f} ms; {(bf16_macs + f32_macs)} multiply-adds per sample")
+    for line in ptxas_summary(_build_log()):
+        if line.startswith(("rows_gemm", "outer_gemm", "rowdot", "reduce_",
+                            "head_loss")):
+            phase("13 kernels", line)
+    # where the time goes: one launch, then one main-path iteration
+    box = {"runner": runner}
+
+    def iteration():
+        box["runner"], _ = step(box["runner"], p4, cfg)
+
+    for label, fn in (
+            ("fused_minibatch_grad bfloat16, one config-4 launch",
+             lambda: ops.fused_minibatch_grad(*k3_args, **k3_kw, compute_dtype=bf16)),
+            ("train_iteration, one config-4 iteration", iteration)):
+        busy, wall_ms, rows = device_profile(fn)
+        phase("13 profile", f"{label}: {wall_ms:.3f} ms wall, device busy share "
+              f"{busy:.4f}; device ms by kernel: " + "; ".join(
+                  f"{name} {n}x {ms:.3f}" for name, n, ms in rows[:12]))
+    return {"name": "fused_minibatch_grad", "route": "cuda",
+            "source": UPDATE_SOURCE, "replaces": REPLACES["fused_minibatch_grad"],
+            "launches": launches["fused_minibatch_grad"], "max_abs_err": k3_err,
+            "ms": ms_bf16, "plain_ms": plain_bf16, "bound_ms": bound_bf16[0],
+            "bound_by": bound_bf16[1], "library_ms": None,
+            "unit": f"ms per launch, bfloat16, one config-4 minibatch of {m} "
+                    f"samples (3v3, hidden {H4})"}
+
+
+def device_profile(fn):
+    """One call of ``fn`` under torch.profiler: (the share of its wall
+    time the device was busy, the wall ms, [(kernel, launches, device
+    ms)] largest first). One stream, so the kernels do not overlap."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = re.sub(r"\([^()]*\)$", "", e.name).replace(
+            "(anonymous namespace)::", "").replace("void ", "")[:70]
+        n, us = per.get(name, (0, 0.0))
+        per[name] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in per.values())
+    rows = sorted(((k, n, us / 1e3) for k, (n, us) in per.items()),
+                  key=lambda r: -r[2])
+    return busy / wall_us, wall_us / 1e3, rows
+
+
+def _build_log() -> str:
+    from gym_futbol_tpu_torch.ops import _build
+
+    return _build.library_path() + ".log"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over their type's peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_PER_S + bf16_ops / BF16_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def env_step_ops(params) -> int:
+    """Floating-point operations of one env step, counted by hand from
+    csrc/futbol_step.cuh: per solver iteration 40 per body pair (normal
+    and friction impulses) and 11 per body and wall (4 walls); per
+    substep 20 per pair (contact set-up) and 40 per body (wall set-up,
+    integration). The rules, rewards and draws are left out, so the
+    bound stays below the true one."""
+    nb = 2 * params.players_per_team + 1
+    pairs = nb * (nb - 1) // 2
+    return params.substeps * (params.solver_iterations * (40 * pairs + 44 * nb)
+                              + 20 * pairs + 40 * nb)
+
+
+def mlp_ops(weights) -> int:
+    """Operations of one MLP forward per sample on flat (W [in, out], b,
+    ...) weights: two per multiply-add of each layer product, one per
+    bias (activations and sampling left out)."""
+    return sum(2 * w.numel() + b.numel() for w, b in zip(weights[::2], weights[1::2]))
 
 
 def time_cuda(fn, iters: int) -> float:
@@ -404,8 +781,9 @@ def ptxas_summary(log_path: str) -> list[str]:
         for line in f:
             if "Compiling entry function" in line:
                 mangled = line.split("'")[1]
-                m = re.search(r"([a-z_]+_kernel)ILi(\d+)E", mangled)
-                name = f"{m[1]}<{m[2]}>" if m else mangled
+                m = re.search(r"([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
+                args = re.findall(r"L[ib](\d+)E", m[2] or "") if m else []
+                name = (f"{m[1]}<{','.join(args)}>" if args else m[1]) if m else mangled
             elif name and "spill stores" in line:
                 spill = line.strip()
             elif name and "Used" in line and "registers" in line:
@@ -596,8 +974,18 @@ def main() -> int:
         lambda i: fused_rollout_reference(sf, si, p3, actions=acts4), 2)
     phase("6 plain", f"2v2 B={B3} T={t_plain}: {plain_ms:.1f} ms/rollout, "
           f"{B3 * t_plain / plain_ms * 1e3:.6g} env-steps/s")
+    # bounds per step: the state read and written once per call, rewards
+    # (and the replayed actions) once; the env step's operations
+    ops_k1 = env_step_ops(p3)
+    bound_k1 = bound((2 * nbytes(sf, si)) / T3 + B3 * 4, B3 * ops_k1)
+    bound_k1b = bound((2 * nbytes(sf, si) + nbytes(acts)) / T_PARITY + B3 * 4,
+                      B3 * ops_k1)
+    phase("6 bound", f"fused_rollout and replay: {ops_k1} operations per "
+          f"env-step -> {bound_k1[0]:.6g} / {bound_k1b[0]:.6g} ms/step "
+          f"({bound_k1[1]} / {bound_k1b[1]})")
 
     policy_record = policy_phases(dev, custom)
+    update_record = update_phases(dev, custom)
 
     per_step = f"ms per step of the {B3}-env 2v2 batch"
     record = {"kernels": [
@@ -605,14 +993,18 @@ def main() -> int:
          "replaces": REPLACES["fused_rollout"],
          "launches": launches["fused_rollout"],
          "max_abs_err": errs["fused_rollout"],
-         "ms": ms3 / T3, "plain_ms": plain_ms / t_plain, "unit": per_step},
+         "ms": ms3 / T3, "plain_ms": plain_ms / t_plain,
+         "bound_ms": bound_k1[0], "bound_by": bound_k1[1], "library_ms": None,
+         "unit": per_step},
         {"name": "fused_rollout_replay", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["fused_rollout_replay"],
          "launches": launches["fused_rollout_replay"],
          "max_abs_err": errs["fused_rollout_replay"],
          "ms": ms_replay / T_PARITY, "plain_ms": plain_replay_ms / t_plain,
+         "bound_ms": bound_k1b[0], "bound_by": bound_k1b[1], "library_ms": None,
          "unit": per_step},
         *policy_record,
+        update_record,
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -102,7 +102,7 @@ def kickoff_positions(noise: torch.Tensor, params: EnvParams) -> torch.Tensor:
 
 def reset(
     generator: torch.Generator, params: EnvParams, n_envs: int,
-    device: torch.device | str | None = None, dtype=torch.float32,
+    device: torch.device | str = "cuda", dtype=torch.float32,
 ) -> tuple[EnvState, torch.Tensor]:
     """A fresh batch of ``n_envs`` episodes. Returns (state, obs)."""
     noise = torch.rand((n_envs, params.n_bodies, 2), generator=generator,

@@ -72,7 +72,7 @@ def _match_metrics(per_env: torch.Tensor, mean_team0_reward: torch.Tensor,
 def evaluate(
     params: EnvParams, policy_a: TeamPolicy | None = None,
     policy_b: TeamPolicy | None = None, n_envs: int = 256,
-    n_steps: int = 300, seed: int = 0, device: torch.device | str = "cpu",
+    n_steps: int = 300, seed: int = 0, device: torch.device | str = "cuda",
 ) -> dict:
     """Play ``n_envs`` matches of ``n_steps``; uniform random policies
     for any side not given."""

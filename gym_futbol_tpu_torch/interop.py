@@ -31,17 +31,18 @@ def params_from_reference(obj) -> EnvParams:
     return EnvParams(**kw)
 
 
-def state_from_numpy(pos, vel, possession, score, t) -> EnvState:
+def state_from_numpy(pos, vel, possession, score, t,
+                     device: torch.device | str = "cuda") -> EnvState:
     """The leaves of a batched JAX ``EnvState`` (``pos``/``vel``
     ``[B, n, 2]``, ``possession``/``t`` ``[B]``, ``score`` ``[B, 2]``) as
-    numpy arrays -> :class:`EnvState` on the CPU. Floats keep their
+    numpy arrays -> :class:`EnvState` on ``device``. Floats keep their
     dtype; integer leaves become int32."""
     def ints(x):
-        return torch.tensor(np.asarray(x, np.int32))
+        return torch.tensor(np.asarray(x, np.int32), device=device)
 
     return EnvState(
-        pos=torch.tensor(np.asarray(pos)),
-        vel=torch.tensor(np.asarray(vel)),
+        pos=torch.tensor(np.asarray(pos), device=device),
+        vel=torch.tensor(np.asarray(vel), device=device),
         possession=ints(possession),
         score=ints(score),
         t=ints(t),
@@ -49,7 +50,7 @@ def state_from_numpy(pos, vel, possession, score, t) -> EnvState:
 
 
 def actor_critic_from_flax(variables, n_players: int,
-                           device: torch.device | str | None = None
+                           device: torch.device | str = "cuda"
                            ) -> ActorCritic:
     """Flax ``ActorCritic`` variables as a nested dict of numpy arrays
     (``params/Dense_i/{kernel, bias}``, torso layers first, then the
@@ -69,7 +70,7 @@ def actor_critic_from_flax(variables, n_players: int,
     return model
 
 
-def mlp_weights_from_numpy(weights, device: torch.device | str | None = None
+def mlp_weights_from_numpy(weights, device: torch.device | str = "cuda"
                            ) -> tuple[torch.Tensor, ...]:
     """A flat ``(W1, b1, ..., Wl, bl)`` tuple of numpy arrays (as the JAX
     package's ``ops.fused_actor.init_mlp`` gives it: ``W`` ``[in, out]``,

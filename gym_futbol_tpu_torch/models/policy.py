@@ -41,7 +41,7 @@ class ActorCritic(nn.Module):
     def __init__(self, n_players: int, obs_dim: int,
                  hidden: Sequence[int] = (256, 256),
                  generator: torch.Generator | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         self.n_players = n_players
         self.obs_dim = obs_dim

@@ -21,3 +21,8 @@ from .fused_collect import (  # noqa: F401
     fused_collect,
     fused_collect_reference,
 )
+from .fused_update import (  # noqa: F401
+    fused_minibatch_grad,
+    fused_minibatch_grad_reference,
+    unflatten_actor_critic,
+)

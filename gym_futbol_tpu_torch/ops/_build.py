@@ -161,5 +161,19 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_selfplay.restype = i
+    lib.futbol_fused_update.argtypes = [
+        p, p,                 # host arrays of weight / gradient pointers
+        i32p, i, i, i,        # widths [n_torso + 1], n_torso, F, G*5
+        p, ctypes.c_longlong,  # obs [F_pad, N], N
+        p, i, i,              # block indices, mb_blocks, block
+        p, p, p, p, p, p,     # dirs, acts, logp, value, ret, adv_n
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        i,                    # bf16 operands (1) or float32 (0)
+        p, p, p, p,           # activation pointers, dz, dlogits, dvalue
+        p, ctypes.c_longlong, i,  # partials, their size, chunk
+        p,                    # metrics [4]
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_fused_update.restype = i
     _LIB = lib
     return lib

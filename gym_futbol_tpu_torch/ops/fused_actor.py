@@ -64,7 +64,7 @@ def mlp_weight_shapes(params: EnvParams, hidden=(128, 128)):
 
 
 def init_mlp(generator: torch.Generator, params: EnvParams, hidden=(128, 128),
-             device: torch.device | str | None = None) -> tuple:
+             device: torch.device | str = "cuda") -> tuple:
     """He-initialised per-team policy weights: flat tuple (W1, b1, W2, ...)."""
     out = []
     for ws, bs in mlp_weight_shapes(params, hidden):

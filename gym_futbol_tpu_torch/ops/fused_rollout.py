@@ -30,7 +30,8 @@ from ..types import EnvParams, EnvState
 # Kernel launches by wrapper name, for every kernel of the package; each
 # wrapper adds one where it launches its kernel.
 LAUNCHES = {"fused_rollout": 0, "fused_rollout_replay": 0,
-            "fused_collect": 0, "fused_selfplay_rollout": 0}
+            "fused_collect": 0, "fused_selfplay_rollout": 0,
+            "fused_minibatch_grad": 0}
 
 
 def reset_launch_counts() -> None:

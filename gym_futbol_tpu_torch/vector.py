@@ -25,7 +25,7 @@ Policy = Callable[[torch.Generator, torch.Tensor], torch.Tensor]
 
 def reset_batch(
     generator: torch.Generator, params: EnvParams, n_envs: int,
-    device: torch.device | str | None = None, dtype=torch.float32,
+    device: torch.device | str = "cuda", dtype=torch.float32,
 ) -> tuple[EnvState, torch.Tensor]:
     """A fresh batch of envs. Returns (state, obs ``[B, obs_dim]``)."""
     return env_core.reset(generator, params, n_envs, device, dtype)
@@ -85,7 +85,7 @@ class VectorFutbolEnv:
 
     def __init__(
         self, n_envs: int, params: EnvParams | None = None, seed: int = 0,
-        device: torch.device | str = "cpu", dtype=torch.float32,
+        device: torch.device | str = "cuda", dtype=torch.float32,
     ):
         self.params = params or EnvParams()
         self.n_envs = n_envs

@@ -12,7 +12,9 @@ integer state exact (the kernel rounds every operation as the plain
 version does, so on the card the two agree bitwise in practice). The
 policy kernels in table and Philox modes, 3v3 at a ragged batch, the
 custom params and 2v2 with the evaluation's (128, 128) MLPs: integers
-and sampled actions exact, floats 1e-5.
+and sampled actions exact, floats 1e-5. The update kernels at 2v2
+(64, 64) in both modes (per leaf rel-L2, bounds with their reasons at
+the test) and one train_iteration on the collect and update kernels.
 """
 
 import importlib
@@ -177,3 +179,114 @@ def test_policy_kernels_reject_bad_inputs(cuda):
         ops.fused_collect(sf6, si6, w6, 0, p6, 2)
     with pytest.raises(ValueError):
         ops.fused_selfplay_rollout(sf6, si6, wa6, wa6, 0, p6, 2)
+
+
+# ---------------------------------------------------------------------------
+# The update kernels (fused_minibatch_grad) and train_iteration
+# ---------------------------------------------------------------------------
+
+tfu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
+
+
+def _update_case(cuda, ppt, hidden, n_blocks, block, idx, seed=5):
+    """A minibatch for fused_minibatch_grad on the card: a module's
+    weights, random obs (zero pad rows), in-range packed actions and
+    per-sample rows, a normalised advantage, permuted block indices."""
+    from gym_futbol_tpu_torch.models.policy import ActorCritic
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    f = 4 * (2 * ppt + 1) + 2
+    f_pad = -(-f // 8) * 8
+    n = n_blocks * block
+    model = ActorCritic(ppt, f, hidden, generator=gen, device=cuda)
+    obs = torch.zeros(f_pad, n, device=cuda)
+    obs[:f] = torch.randn(f, n, generator=gen, device=cuda)
+
+    def packed():
+        a = torch.randint(0, 5, (ppt, n_blocks, block), generator=gen,
+                          device=cuda, dtype=torch.int32)
+        return sum(a[q] << (3 * q) for q in range(ppt)).to(torch.int32)
+
+    def rows(scale=1.0):
+        return torch.randn(n_blocks, block, generator=gen, device=cuda) * scale
+
+    idx = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    adv = rows()[idx.long()]
+    adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    args = (tfc.flatten_actor_critic(model), obs, packed(), packed(),
+            -rows().abs() * 2 * ppt, rows(), rows(), adv_n, idx)
+    kw = dict(n_torso=len(hidden), clip_eps=0.2, vf_coef=0.5, ent_coef=0.01,
+              block=block)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-3)],
+                         ids=["float32", "bfloat16"])
+def test_update_kernels_match_plain(cuda, dtype, rel):
+    """2v2, hidden (64, 64), blocks of 128, a permuted minibatch of 3 of
+    8 blocks: per leaf rel-L2 within 1e-4 (float32: sums in another
+    order) or 1e-3 (bfloat16: the same rounding points, so the order of
+    the sums and the rare one-ulp flip of a rounded operand it causes);
+    metric sums within 1e-4 of the larger of the sum and the sample
+    count; two calls identical (no atomics)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, kw = _update_case(cuda, 2, (64, 64), 8, 128, [5, 0, 3])
+    before = ops.LAUNCHES["fused_minibatch_grad"]
+    got = ops.fused_minibatch_grad(*args, **kw, compute_dtype=dtype)
+    again = ops.fused_minibatch_grad(*args, **kw, compute_dtype=dtype)
+    want = tfu.fused_minibatch_grad_reference(*args, **kw, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_minibatch_grad"] == before + 2
+    assert [g.shape for g in got[0]] == [w.shape for w in args[0]]
+    for k, p, a in zip(got[0], want[0], again[0]):
+        assert k.device.type == "cuda" and torch.isfinite(k).all()
+        assert ((k - p).norm() / p.norm()).item() <= rel
+        assert torch.equal(k, a)
+    n_samples = args[-1].shape[0] * kw["block"]
+    for m in tfu.METRICS:
+        k, p = got[1][m].item(), want[1][m].item()
+        assert abs(k - p) <= 1e-4 * max(abs(p), n_samples), m
+        assert torch.equal(got[1][m], again[1][m])
+
+
+@pytest.mark.cuda
+def test_update_kernels_reject_bad_inputs(cuda):
+    """The wrapper refuses what the kernels do not take: strided obs,
+    block indices on the host, a head too wide for shared memory."""
+    args, kw = _update_case(cuda, 2, (16,), 4, 128, [1, 2])
+    w, obs, rest = args[0], args[1], args[2:]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_minibatch_grad(w, obs.t().contiguous().t(), *rest, **kw)
+    with pytest.raises(ValueError, match="device"):
+        ops.fused_minibatch_grad(w, obs, *rest[:-1], rest[-1].cpu(), **kw)
+    wide, wide_kw = _update_case(cuda, 2, (4096,), 4, 128, [1, 2])
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.fused_minibatch_grad(*wide, **wide_kw)
+
+
+@pytest.mark.cuda
+def test_train_iteration_on_kernels(cuda):
+    """One train_iteration at 2v2, 256 envs, T=8, hidden (32, 32) on the
+    collect and update kernels: one collect launch, epochs x minibatches
+    update launches, finite metrics, every parameter moved."""
+    from gym_futbol_tpu_torch import obs_size, ppo
+    from gym_futbol_tpu_torch.models.policy import ActorCritic
+
+    params = EnvParams(players_per_team=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = ActorCritic(2, obs_size(params), (32, 32), device=cuda)
+    cfg = ppo.PPOConfig(rollout_steps=8)
+    runner = ppo.init_runner(gen, model, params, cfg, B)
+    first = [p.detach().clone() for p in model.parameters()]
+    before = dict(ops.LAUNCHES)
+    runner, metrics = ppo.train_iteration(
+        runner, params, cfg, collect_fn=ppo.collect_rollout_fused,
+        update_fn=ppo.update_epochs_fused)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_collect"] == before["fused_collect"] + 1
+    assert (ops.LAUNCHES["fused_minibatch_grad"]
+            == before["fused_minibatch_grad"] + cfg.epochs * cfg.minibatches)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(not torch.equal(a, b) for a, b in zip(first, model.parameters()))

@@ -81,7 +81,7 @@ def test_step_matches_jax(ref):
     for k in range(T):
         theta, noise = _jax_draws(jstate.key, ref)
         tstate = state_from_numpy(jstate.pos, jstate.vel, jstate.possession,
-                                  jstate.score, jstate.t)
+                                  jstate.score, jstate.t, device="cpu")
         jstate, jout = jstep(jstate, jnp.asarray(actions[k]))
         tstate, tout = tenv.step(tstate, torch.from_numpy(actions[k]), theta,
                                  noise, params, auto_reset=True)

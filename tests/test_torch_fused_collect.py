@@ -120,7 +120,8 @@ def test_mlp_sampling_and_unmirror_match_jax_helpers():
     weights = [_np(w) for w in jfa.init_mlp(jax.random.PRNGKey(0), ref, HIDDEN)]
     x = rng.normal(0.0, 1.0, (22, B)).astype(np.float32)
     want = jfa._mlp_logit_rows(jnp.asarray(x), [jnp.asarray(w) for w in weights], B)
-    got = tfa.mlp_logit_rows(torch.from_numpy(x), mlp_weights_from_numpy(weights))
+    got = tfa.mlp_logit_rows(torch.from_numpy(x),
+                             mlp_weights_from_numpy(weights, device="cpu"))
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-6)
 
     logits = rng.normal(0.0, 2.0, (20, B)).astype(np.float32)
@@ -160,8 +161,9 @@ def _port_runner(runner, ref):
     params = params_from_reference(ref)
     st = runner.env_state
     model = actor_critic_from_flax(jax.tree.map(np.asarray, runner.params),
-                                   ref.players_per_team)
-    state = state_from_numpy(st.pos, st.vel, st.possession, st.score, st.t)
+                                   ref.players_per_team, device="cpu")
+    state = state_from_numpy(st.pos, st.vel, st.possession, st.score, st.t,
+                             device="cpu")
     return params, tppo.RunnerState(
         model=model, env_state=state, obs=torch.from_numpy(np.array(runner.obs)),
         generator=torch.Generator().manual_seed(0))
@@ -276,7 +278,8 @@ def _jax_selfplay_draws(key, ref, n_steps):
 def _mlps(ref):
     wa = jfa.init_mlp(jax.random.PRNGKey(1), ref, HIDDEN)
     wb = jfa.init_mlp(jax.random.PRNGKey(2), ref, HIDDEN)
-    return wa, wb, mlp_weights_from_numpy(wa), mlp_weights_from_numpy(wb)
+    return (wa, wb, mlp_weights_from_numpy(wa, device="cpu"),
+            mlp_weights_from_numpy(wb, device="cpu"))
 
 
 def test_selfplay_reference_matches_jax_rollout():
@@ -295,7 +298,8 @@ def test_selfplay_reference_matches_jax_rollout():
                                 jfa.mlp_team_policy(wb, P))
     jfinal, jouts = jrollout(jstate, policy, key, P, T)
 
-    sf, si = ops.pack_state(state_from_numpy(pos, vel, poss, score, t), params)
+    sf, si = ops.pack_state(
+        state_from_numpy(pos, vel, poss, score, t, device="cpu"), params)
     sf2, si2, rew, goals = tfa.fused_selfplay_rollout_reference(
         sf, si, twa, twb, params,
         uniforms=_table(P, *_jax_selfplay_draws(key, P, T)))
@@ -323,8 +327,8 @@ def test_evaluate_metrics_match_jax():
     k_reset, k_roll = jax.random.split(jax.random.PRNGKey(3))
     jstate, _ = jreset_batch(k_reset, P, B)
     sf, si = ops.pack_state(state_from_numpy(
-        jstate.pos, jstate.vel, jstate.possession, jstate.score, jstate.t),
-        params)
+        jstate.pos, jstate.vel, jstate.possession, jstate.score, jstate.t,
+        device="cpu"), params)
     _, _, rew, goals = tfa.fused_selfplay_rollout_reference(
         sf, si, twa, twb, params,
         uniforms=_table(P, *_jax_selfplay_draws(k_roll, P, T)))
@@ -364,13 +368,15 @@ def test_compute_gae_matches_jax():
 
 
 def test_ppo_config_defaults_match_jax():
-    """The port's PPOConfig holds what collection and GAE read, with the
-    JAX package's defaults."""
+    """The port's PPOConfig holds what collection, GAE and the update
+    read (JAX's fields but ``remat``, which has no counterpart), with
+    the JAX package's defaults."""
     import dataclasses
 
     tcfg, jcfg = tppo.PPOConfig(), jppo.PPOConfig()
     names = [f.name for f in dataclasses.fields(tcfg)]
-    assert names == ["rollout_steps", "gamma", "gae_lambda"]
+    assert names == [f.name for f in dataclasses.fields(jcfg)
+                     if f.name != "remat"]
     for name in names:
         assert getattr(tcfg, name) == getattr(jcfg, name), name
 
@@ -383,7 +389,8 @@ def test_ppo_config_defaults_match_jax():
 def _port_setup(ppt=2, n_envs=B, hidden=HIDDEN, seed=0):
     params = params_from_reference(P.replace(players_per_team=ppt))
     gen = torch.Generator().manual_seed(seed)
-    model = ActorCritic(ppt, 4 * params.n_bodies + 2, hidden, generator=gen)
+    model = ActorCritic(ppt, 4 * params.n_bodies + 2, hidden, generator=gen,
+                        device="cpu")
     cfg = tppo.PPOConfig(rollout_steps=4)
     runner = tppo.init_runner(gen, model, params, cfg, n_envs)
     return params, cfg, runner
@@ -422,9 +429,11 @@ def test_cpu_path_never_builds(monkeypatch):
     e1 = teval.evaluate_fused(params, mlp, n_envs=32, n_steps=3, seed=1)
     e2 = teval.evaluate_fused(params, mlp, n_envs=32, n_steps=3, seed=1)
     assert e1["mean_team0_reward"] == e2["mean_team0_reward"]
-    assert set(e1) == set(teval.evaluate(params, n_envs=8, n_steps=2))
+    assert set(e1) == set(teval.evaluate(params, n_envs=8, n_steps=2,
+                                         device="cpu"))
     assert ops.LAUNCHES == {"fused_rollout": 0, "fused_rollout_replay": 0,
-                            "fused_collect": 0, "fused_selfplay_rollout": 0}
+                            "fused_collect": 0, "fused_selfplay_rollout": 0,
+                            "fused_minibatch_grad": 0}
 
 
 def test_philox_sampling_statistics():

@@ -69,7 +69,7 @@ def _jax_start(ref, seed):
     """A JAX reset batch, and the same state packed for the port."""
     jstate, _ = jreset_batch(jax.random.PRNGKey(seed), ref, B)
     tstate = state_from_numpy(jstate.pos, jstate.vel, jstate.possession,
-                              jstate.score, jstate.t)
+                              jstate.score, jstate.t, device="cpu")
     return jstate, tstate
 
 
@@ -207,7 +207,8 @@ def test_cpu_path_never_builds(monkeypatch):
     out2 = ops.fused_rollout(sf, si, 3, params, 4)
     out3 = ops.fused_rollout(sf, si, 4, params, 4)
     assert ops.LAUNCHES == {"fused_rollout": 0, "fused_rollout_replay": 0,
-                            "fused_collect": 0, "fused_selfplay_rollout": 0}
+                            "fused_collect": 0, "fused_selfplay_rollout": 0,
+                            "fused_minibatch_grad": 0}
     for x, y in zip(out1, out2):
         assert torch.equal(x, y)
     assert not torch.equal(out1[2], out3[2])

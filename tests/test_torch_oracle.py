@@ -77,7 +77,7 @@ def test_env_step_matches_oracle(oracle, params):
         actions = striker_actions(pos, poss, params, rng)
         theta = rng.normal(size=b) * params.kick_noise
         noise = rng.uniform(-1.0, 1.0, (b, params.n_bodies, 2))
-        state = state_from_numpy(pos, vel, poss, score, t)
+        state = state_from_numpy(pos, vel, poss, score, t, device="cpu")
         tstate, out = tenv.step(state, torch.from_numpy(actions),
                                 torch.from_numpy(theta),
                                 torch.from_numpy(noise), params,

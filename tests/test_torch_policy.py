@@ -59,7 +59,7 @@ def test_actor_critic_matches_flax(ppt, hidden):
     obs = np.random.default_rng(1).normal(
         0.0, 1.0, (B, jenv.obs_size(ref))).astype(np.float32)
     jlogits, jvalue = model.apply(variables, jnp.asarray(obs))
-    tmodel = actor_critic_from_flax(variables, ppt)
+    tmodel = actor_critic_from_flax(variables, ppt, device="cpu")
     assert tmodel.hidden == hidden and tmodel.obs_dim == jenv.obs_size(ref)
     with torch.no_grad():
         logits, value = tmodel(torch.from_numpy(obs))
@@ -75,7 +75,8 @@ def test_actor_critic_init_like_flax():
     per layer, |w| <= 2 * std / 0.8796 and the std within 5% of
     sqrt(1 / fan_in)."""
     gen = torch.Generator().manual_seed(3)
-    model = tpolicy.ActorCritic(2, 22, (256, 128), generator=gen)
+    model = tpolicy.ActorCritic(2, 22, (256, 128), generator=gen,
+                                device="cpu")
     for layer in model.dense_layers():
         w = layer.weight.detach()
         want = (1.0 / layer.in_features) ** 0.5
@@ -84,7 +85,8 @@ def test_actor_critic_init_like_flax():
         if w.numel() >= 1000:
             assert abs(w.std().item() / want - 1.0) < 0.05
     again = tpolicy.ActorCritic(2, 22, (256, 128),
-                                generator=torch.Generator().manual_seed(3))
+                                generator=torch.Generator().manual_seed(3),
+                                device="cpu")
     assert torch.equal(again.torso[0].weight, model.torso[0].weight)
 
 
@@ -159,18 +161,20 @@ def test_make_policy_fn_and_init_params():
     params = params_from_reference(JEnvParams(players_per_team=2))
     gen = torch.Generator().manual_seed(0)
     model = tpolicy.init_params(
-        gen, tpolicy.ActorCritic(2, tenv.obs_size(params), (16,)), params)
-    obs = tenv.reset(gen, params, 8)[1]
+        gen, tpolicy.ActorCritic(2, tenv.obs_size(params), (16,), device="cpu"),
+        params)
+    obs = tenv.reset(gen, params, 8, device="cpu")[1]
     actions = tpolicy.make_policy_fn(model)(gen, obs)
     assert actions.shape == (8, 2, 2) and actions.dtype == torch.int32
     with pytest.raises(ValueError):
-        tpolicy.init_params(gen, tpolicy.ActorCritic(2, 7, (16,)), params)
+        tpolicy.init_params(gen, tpolicy.ActorCritic(2, 7, (16,), device="cpu"),
+                            params)
 
 
 def test_mlp_weights_from_numpy():
     ref = JEnvParams(players_per_team=2)
     jw = jinit_mlp(jax.random.PRNGKey(0), ref, (32, 16))
-    tw = mlp_weights_from_numpy([np.asarray(w) for w in jw])
+    tw = mlp_weights_from_numpy([np.asarray(w) for w in jw], device="cpu")
     assert len(tw) == len(jw)
     for t, j in zip(tw, jw):
         assert t.dtype == torch.float32
@@ -178,17 +182,23 @@ def test_mlp_weights_from_numpy():
 
 
 def test_port_imports_no_jax():
-    """The port imports torch and never JAX or flax: with both made
-    unimportable, every module of the package still imports."""
+    """The port imports torch and never JAX, flax, optax or the JAX
+    package: with all four made unimportable, every module of the package
+    (the update's ppo, train and ops.fused_update among them) still
+    imports."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for name in ('jax', 'flax', 'optax', 'gym_futbol_tpu'):\n"
+        "    sys.modules[name] = None\n"
         "import gym_futbol_tpu_torch as pkg\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "assert not any(k.startswith(('jax', 'flax')) and sys.modules[k] "
-        "for k in sys.modules)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'gym_futbol_tpu_torch.train', 'gym_futbol_tpu_torch.ppo',\n"
+        "        'gym_futbol_tpu_torch.ops.fused_update'} <= set(names)\n"
+        "assert not any(k.startswith(('jax', 'flax', 'optax', 'gym_futbol_tpu.'))\n"
+        "               and sys.modules[k] for k in sys.modules)\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -75,7 +75,8 @@ def test_state_from_numpy_layout():
     pos = rng.normal(size=(4, 5, 2)).astype(np.float32)
     vel = rng.normal(size=(4, 5, 2)).astype(np.float32)
     st = state_from_numpy(pos, vel, np.array([-1, 1, 2, 3]),
-                          np.zeros((4, 2), np.int64), np.arange(4))
+                          np.zeros((4, 2), np.int64), np.arange(4),
+                          device="cpu")
     assert st.pos.dtype == torch.float32 and st.possession.dtype == torch.int32
     assert st.score.dtype == torch.int32 and tuple(st.score.shape) == (4, 2)
     np.testing.assert_array_equal(st.pos.numpy(), pos)

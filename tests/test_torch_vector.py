@@ -21,7 +21,7 @@ FAST = dict(substeps=1, solver_iterations=1)
 def test_reset_and_rollout_shapes():
     params = EnvParams(players_per_team=2)
     gen = torch.Generator().manual_seed(0)
-    state, obs = vector.reset_batch(gen, params, 16)
+    state, obs = vector.reset_batch(gen, params, 16, device="cpu")
     assert obs.shape == (16, obs_size(params)) and obs.dtype == torch.float32
     assert state.pos.shape == (16, params.n_bodies, 2)
     assert state.possession.dtype == torch.int32 and state.score.shape == (16, 2)
@@ -39,7 +39,7 @@ def test_determinism_per_generator_seed():
 
     def run(seed):
         gen = torch.Generator().manual_seed(seed)
-        state, _ = vector.reset_batch(gen, params, 8)
+        state, _ = vector.reset_batch(gen, params, 8, device="cpu")
         return vector.rollout(state, vector.random_policy(params), gen,
                               params, 5)
 
@@ -51,7 +51,7 @@ def test_determinism_per_generator_seed():
 def test_auto_reset_done_count_exact():
     n_envs = 64
     params = EnvParams(players_per_team=2, max_steps=50, **FAST)
-    env = vector.VectorFutbolEnv(n_envs, params, seed=1)
+    env = vector.VectorFutbolEnv(n_envs, params, seed=1, device="cpu")
     policy = vector.random_policy(params)
     gen = torch.Generator().manual_seed(2)
     obs, dones = env.reset(), 0
@@ -65,6 +65,6 @@ def test_auto_reset_done_count_exact():
 
 
 def test_step_before_reset_raises():
-    env = vector.VectorFutbolEnv(4, EnvParams())
+    env = vector.VectorFutbolEnv(4, EnvParams(), device="cpu")
     with pytest.raises(RuntimeError):
         env.step(torch.zeros((4, 4, 2), dtype=torch.int32))
