@@ -20,7 +20,14 @@ port's main paths:
   weights, so that both clips decide some samples' gradients), then
   train_iteration at bench config 4 (fused collect, GAE, 4 epochs x 4
   minibatches of 2^20 samples on the kernels) and once through the
-  training CLI, then the kernels' times.
+  training CLI, then the kernels' times;
+- phases 14-16, the recurrent learners (fused_recurrent_collect): the
+  kernel against its plain version in table and Philox modes from
+  non-zero carries (3v3, 16384 envs, hidden (128,), H=128, and other
+  shapes), a teacher-forced check against the RecurrentActorCritic
+  module and sampling statistics, then recurrent PPO through
+  train_iteration_recurrent_ppo at that shape (T=16), one recurrent A2C
+  iteration and the training CLI with --recurrent, then K5's times.
 One line per phase; any failed phase exits nonzero with no result line.
 The last two lines are the kernels' record and ``{"ok": true, "device":
 {...}}``. Each kernel's ``bound_ms`` is the least time the card could
@@ -28,7 +35,7 @@ take for its work on this run's inputs: the larger of its bytes (each
 input read once, each output written once) over the memory rate and its
 operations over the peak rate of their type (H100 SXM data sheet, 700
 W); operations are counted by hand from the shapes (env_step_ops,
-mlp_ops and K3's layer products).
+mlp_ops, K3's layer products).
 
 Run from the repository root:  python3 chip_smoke.py
 It needs a CUDA device and nvcc, and imports nothing of JAX.
@@ -56,12 +63,14 @@ T_FORCED = 32
 SOURCE = "gym_futbol_tpu_torch/csrc/fused_rollout.cu"
 POLICY_SOURCE = "gym_futbol_tpu_torch/csrc/fused_policy.cu"
 UPDATE_SOURCE = "gym_futbol_tpu_torch/csrc/fused_update.cu"
+RECURRENT_SOURCE = "gym_futbol_tpu_torch/csrc/fused_recurrent.cu"
 REPLACES = {
     "fused_rollout": "gym_futbol_tpu/ops/fused_rollout.py:342",
     "fused_rollout_replay": "gym_futbol_tpu/ops/fused_rollout.py:487",
     "fused_collect": "gym_futbol_tpu/ops/fused_collect.py:304",
     "fused_selfplay_rollout": "gym_futbol_tpu/ops/fused_actor.py:237",
     "fused_minibatch_grad": "gym_futbol_tpu/ops/fused_update.py:255",
+    "fused_recurrent_collect": "gym_futbol_tpu/ops/fused_recurrent.py:328",
 }
 # H100 SXM peaks (NVIDIA data sheet, 700 W): memory, float32 on the CUDA
 # cores, dense bfloat16 on the tensor cores.
@@ -84,6 +93,13 @@ POLICY_ATOL, FORCED_ATOL, MIRROR_ATOL = 1e-4, 1e-4, 1e-6
 # the plain version's sum of |per-sample term| (compare_update).
 K3_F32_REL, K3_BF16_REL, K3_AUTOGRAD_REL, K3_METRIC_REL = 1e-4, 1e-3, 1e-4, 1e-4
 K3_BLOCK = 1024             # PPOConfig.shuffle_block
+# The recurrent main path: the JAX recurrent gate at config-4 scale
+# (3v3, 16384 envs, T=16, hidden (128,), LSTM size 128).
+BR, TR, HR, LSTM_R = 16384, 16, (128,), 128
+# K5 replayed through the RecurrentActorCritic module (cuBLAS float32,
+# TF32 off, another summation order, the carry fed back over 16 steps):
+# logp, value and the final carries within 5e-5.
+K5_FORCED_ATOL = 5e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -690,6 +706,239 @@ def update_phases(dev, custom) -> dict:
                     f"samples (3v3, hidden {H4})"}
 
 
+def recurrent_phases(dev, custom) -> dict:
+    """Phases 14-16: fused_recurrent_collect against its plain version,
+    the teacher-forced check and sampling statistics, the recurrent
+    learners' main path (recurrent PPO and A2C, the CLI) and K5's times.
+    Returns K5's entry of the kernels line."""
+    import torch
+
+    from gym_futbol_tpu_torch import EnvParams, a2c, obs_size, ops, vector
+    from gym_futbol_tpu_torch import recurrent_ppo as rppo
+    from gym_futbol_tpu_torch.models.policy import action_log_prob_and_entropy_packed
+    from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic
+    from gym_futbol_tpu_torch.ops.fused_rollout import n_draws_per_step
+
+    fr = importlib.import_module("gym_futbol_tpu_torch.ops.fused_recurrent")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p3, p2 = EnvParams(players_per_team=3), EnvParams(players_per_team=2)
+
+    def setup(params, hidden, lstm, n_envs, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state, _ = vector.reset_batch(gen, params, n_envs, device=dev)
+        model = RecurrentActorCritic(params.players_per_team, obs_size(params),
+                                     hidden, lstm, generator=gen, device=dev)
+        carries = [torch.randn(2, lstm, n_envs, generator=gen, device=dev) * 0.5
+                   for _ in range(2)]
+        return (*ops.pack_state(state, params), model, carries, gen)
+
+    # 14: kernel vs plain version from non-zero carries, same uniforms and
+    # Philox; the plain version runs T=4 at the main shape
+    k5_err = 0.0
+    for label, params, hidden, lstm, n_envs, n_steps, philox, main in (
+            (f"3v3 {HR} H={LSTM_R}", p3, HR, LSTM_R, BR, 4, True, True),
+            ("2v2 (128,) H=128", p2, (128,), 128, B6, T_PARITY, True, False),
+            ("custom (32, 16) H=32", custom, (32, 16), 32, B3, T_PARITY, False, False),
+            ("ragged 2v2 max_steps 7 (64,) H=64", p2.replace(max_steps=7), (64,), 64,
+             1000, T_PARITY, True, False)):
+        sf, si, model, (cc, hh), gen = setup(params, hidden, lstm, n_envs, 7)
+        w = fr.flatten_recurrent_actor_critic(model)
+        c0, h0 = cc.clone(), hh.clone()
+        u = torch.rand((n_steps, n_draws_per_step(params), n_envs), generator=gen,
+                       device=dev)
+        tag = f"14 {label} B={n_envs} T={n_steps}"
+        got = ops.fused_recurrent_collect(sf, si, w, cc, hh, 0, params, n_steps,
+                                          uniforms=u)
+        errs = [compare_policy(got, fr.fused_recurrent_collect_reference(
+            sf, si, w, cc, hh, params, uniforms=u), f"{tag}, table", (3, 4))]
+        if philox:
+            errs.append(compare_policy(
+                ops.fused_recurrent_collect(sf, si, w, cc, hh, 5, params, n_steps),
+                fr.fused_recurrent_collect_reference(sf, si, w, cc, hh, params,
+                                                     n_steps, seed=5),
+                f"{tag}, Philox", (3, 4)))
+        check(torch.equal(cc, c0) and torch.equal(hh, h0),
+              f"{tag}: the input carries changed")
+        if params.max_steps <= n_steps:
+            check(bool(got[8].any()), f"{tag}: no episode ended in the window")
+        if main:
+            k5_err = max(errs)
+
+    # 14: teacher-forced at the main shape (episodes ending in the window):
+    # the module replayed over the kernel's own obs from its initial carry
+    pf = p3.replace(max_steps=12)
+    sf, si, model, (cc, hh), gen = setup(pf, HR, LSTM_R, BR, 8)
+    w = fr.flatten_recurrent_actor_critic(model)
+    (_, _, obs, dirs, acts, logp, value, _, done, _, cc2,
+     hh2) = ops.fused_recurrent_collect(sf, si, w, cc, hh, 78, pf, TR)
+    f = obs_size(pf)
+    x = obs[:, :f].permute(2, 0, 3, 1).reshape(TR, 2 * BR, f)    # [T, 2B, F]
+
+    def flat(a):                                        # [T, 2, B] -> [T, 2B]
+        return a.reshape(TR, 2 * BR)
+
+    carry0 = tuple(c.transpose(1, 2).reshape(2 * BR, LSTM_R) for c in (cc, hh))
+    with torch.no_grad():
+        (c_end, h_end), (logits, v) = model.unroll(carry0, x, flat(done).bool())
+        lp, _ = action_log_prob_and_entropy_packed(logits, flat(dirs), flat(acts))
+    errs = {"logp": (lp - flat(logp)).abs().max().item(),
+            "value": (v - flat(value)).abs().max().item(),
+            "carry": max((a - b.transpose(1, 2).reshape(2 * BR, LSTM_R)).abs().max()
+                         .item() for a, b in ((c_end, cc2), (h_end, hh2)))}
+    n_ends = int(done.sum()) // 2
+    phase("14 forced", f"3v3 max_steps 12 B={BR} T={TR} H={LSTM_R}, Philox, module "
+          f"replay (TF32 off): " + ", ".join(f"{k} err {e:.3g}" for k, e in errs.items())
+          + f" (<= {K5_FORCED_ATOL}); {n_ends} episode ends")
+    check(max(errs.values()) <= K5_FORCED_ATOL and n_ends > 0, "14: module replay")
+
+    # 14: sampling statistics of the same collect against its own softmax
+    n_groups = 2 * pf.players_per_team
+    probs = torch.softmax(logits.double().reshape(-1, n_groups, 5), -1)
+    packed = (flat(dirs).reshape(-1), flat(acts).reshape(-1))
+    z = 0.0
+    for g in range(n_groups):
+        a = (packed[g % 2] >> (3 * (g // 2))) & 7
+        onehot = torch.nn.functional.one_hot(a.long(), 5).double()
+        pg = probs[:, g]
+        se = (pg * (1 - pg)).sum(0).sqrt() / pg.shape[0]
+        z = max(z, ((onehot.mean(0) - pg.mean(0)).abs() / se).max().item())
+    phase("14 stats", f"recurrent collect: {probs.shape[0]} samples x {n_groups} "
+          f"groups, max |freq - p| / SE {z:.3f} (<= 5)")
+    check(z <= 5.0, "14: sampling statistics")
+
+    # 15: the main path: recurrent PPO at the main shape on the kernel,
+    # then one recurrent A2C iteration
+    ops.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = RecurrentActorCritic(3, obs_size(p3), HR, LSTM_R, device=dev)
+    cfg = rppo.RecurrentPPOConfig(rollout_steps=TR)
+    runner = rppo.init_recurrent_ppo_runner(gen, model, p3, cfg, BR)
+    spans = {"collect": [], "update": []}
+
+    def timed(fn, name):
+        def run(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    step = functools.partial(
+        rppo.train_iteration_recurrent_ppo,
+        collect_fn=timed(a2c.collect_recurrent_rollout_fused, "collect"),
+        update_fn=timed(rppo.update_epochs_recurrent, "update"))
+    first = [p.detach().clone() for p in model.parameters()]
+    runner, _ = step(runner, p3, cfg)                            # warm-up
+    n_iters, totals, history = 3, [], []
+    for i in range(n_iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        runner, metrics = step(runner, p3, cfg)
+        end.record()
+        totals.append((start, end))
+        history.append(metrics)
+        check(ops.LAUNCHES["fused_recurrent_collect"] == i + 2,
+              "15: one K5 launch per iteration")
+    torch.cuda.synchronize()
+    ms = sum(s.elapsed_time(e) for s, e in totals) / n_iters
+    ms_collect = sum(s.elapsed_time(e) for s, e in spans["collect"][1:]) / n_iters
+    ms_update = sum(s.elapsed_time(e) for s, e in spans["update"][1:]) / n_iters
+    values = {k: [float(m[k]) for m in history] for k in history[0]}
+    check(all(math.isfinite(v) for vs in values.values() for v in vs),
+          f"15: non-finite metrics {values}")
+    check(all(not torch.equal(a, b) for a, b in zip(first, model.parameters())),
+          "15: a parameter did not change")
+    check(sum(ops.LAUNCHES.values()) == ops.LAUNCHES["fused_recurrent_collect"],
+          "15: another kernel ran in the recurrent path")
+    phase("15 main path", f"train_iteration_recurrent_ppo (collect_recurrent_rollout_"
+          f"fused, compute_gae, update_epochs_recurrent), 3v3 B={BR} T={TR} hidden "
+          f"{HR} H={LSTM_R}, {cfg.epochs} x {cfg.minibatches} minibatches of "
+          f"{2 * BR // cfg.minibatches} sequences: {ms:.3f} ms/iteration, "
+          f"{BR * TR / ms * 1e3:.6g} env-steps/s ({n_iters} iterations after 1 "
+          f"warm-up); collect {ms_collect:.3f} ms, update {ms_update:.3f} ms, "
+          f"GAE and the rest {ms - ms_collect - ms_update:.3f} ms")
+    phase("15 main path", "metrics per iteration: " + "; ".join(
+        f"{k} " + " ".join(f"{v:.5g}" for v in vs) for k, vs in values.items()))
+    a2c_model = RecurrentActorCritic(3, obs_size(p3), HR, LSTM_R, device=dev)
+    a2c_cfg = a2c.A2CConfig(rollout_steps=TR)
+    a2c_runner = a2c.init_recurrent_runner(gen, a2c_model, p3, a2c_cfg, BR)
+    t0 = time.perf_counter()
+    a2c_runner, m = a2c.train_iteration_recurrent(
+        a2c_runner, p3, a2c_cfg, collect_fn=a2c.collect_recurrent_rollout_fused)
+    m = {k: float(v) for k, v in m.items()}                     # synchronises
+    phase("15 main path", f"train_iteration_recurrent (A2C, one full-batch BPTT "
+          f"step), 3v3 B={BR} T={TR}: first iteration {1e3 * (time.perf_counter() - t0):.1f}"
+          f" ms wall; " + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    check(all(math.isfinite(v) for v in m.values()), "15: A2C metrics")
+    launches = ops.LAUNCHES["fused_recurrent_collect"]
+    check(launches == n_iters + 2, f"15: {launches} K5 launches in the main path")
+    phase("15 main path", f"kernel launches in the main path: "
+          f"{{'fused_recurrent_collect': {launches}}}")
+
+    argv = ["--recurrent", "--fused-collect", "--ppt", "3", "--envs", str(BR),
+            "--hidden", *map(str, HR), "--lstm-size", str(LSTM_R), "--iters", "2"]
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "gym_futbol_tpu_torch.train",
+                          *argv], capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    records = [json.loads(x) for x in cli.stdout.splitlines() if x.startswith("{")]
+    phase("15 CLI", f"python -m gym_futbol_tpu_torch.train {' '.join(argv)}: "
+          f"exit {cli.returncode} in {time.perf_counter() - t0:.1f} s; "
+          + " | ".join(json.dumps(r) for r in records))
+    check(cli.returncode == 0, f"15: the CLI failed: {cli.stderr[-2000:]}")
+    check(len(records) == 3 and records[2].get("total_env_steps") == 2 * BR * TR,
+          "15: the CLI's records (T must resolve to 16)")
+
+    # 16: K5 alone at the main shape, the plain version, the bound
+    sf, si = ops.pack_state(runner.env_state, p3)
+    cc, hh = (c.transpose(1, 2).contiguous() for c in runner.carry)
+    w = fr.flatten_recurrent_actor_critic(model)
+    ms_k5 = time_cuda(lambda i: ops.fused_recurrent_collect(
+        sf, si, w, cc, hh, 700 + i, p3, TR), 5)
+    t_plain = 2
+    fr.fused_recurrent_collect_reference(sf, si, w, cc, hh, p3, 1, seed=0)
+    plain_k5 = time_cuda(lambda i: fr.fused_recurrent_collect_reference(
+        sf, si, w, cc, hh, p3, t_plain, seed=1 + i), 1) / t_plain
+    # bound per step: state, weights and input carries read, state and
+    # output carries written once per call; obs, the six [T, 2, B] rows
+    # and the bootstrap values written once. Operations: the env step and
+    # both views' torso, cell ([t; h] x [n_t + H, 4H]) and heads
+    n_torso = len(HR)
+    wi, wh, bh, wl, bl, wv, bv = w[2 * n_torso:]
+    layers = (*w[:2 * n_torso], torch.cat([wi, wh]), bh, wl, bl, wv, bv)
+    ops_k5 = env_step_ops(p3) + 2 * mlp_ops(layers)
+    f_pad = -(-obs_size(p3) // 8) * 8
+    bytes_k5 = (2 * nbytes(sf, si) + nbytes(*w) + 4 * nbytes(cc)
+                + 4 * 2 * BR * (f_pad * TR + 6 * TR + 1))
+    bound_k5 = bound(bytes_k5 / TR, BR * ops_k5)
+    phase("16 kernels", f"fused_recurrent_collect 3v3 B={BR} T={TR}: {ms_k5:.3f} ms "
+          f"({ms_k5 / TR:.5f} ms/step); plain version {plain_k5:.1f} ms/step; "
+          f"{ops_k5} operations per env-step -> bound {bound_k5[0]:.6g} ms/step "
+          f"({bound_k5[1]})")
+    for line in ptxas_summary(_build_log()):
+        if line.startswith("recurrent_kernel"):
+            phase("16 kernels", line)
+    box = {"runner": runner}
+
+    def iteration():
+        box["runner"], _ = step(box["runner"], p3, cfg)
+
+    busy, wall_ms, rows = device_profile(iteration)
+    phase("16 profile", f"train_iteration_recurrent_ppo, one main-path iteration: "
+          f"{wall_ms:.3f} ms wall, device busy share {busy:.4f}; device ms by "
+          f"kernel: " + "; ".join(f"{name} {n}x {ms:.3f}" for name, n, ms in rows[:12]))
+    return {"name": "fused_recurrent_collect", "route": "cuda",
+            "source": RECURRENT_SOURCE,
+            "replaces": REPLACES["fused_recurrent_collect"], "launches": launches,
+            "max_abs_err": k5_err, "ms": ms_k5 / TR, "plain_ms": plain_k5,
+            "bound_ms": bound_k5[0], "bound_by": bound_k5[1], "library_ms": None,
+            "unit": f"ms per step of the {BR}-env 3v3 batch, hidden {HR}, "
+                    f"H {LSTM_R}"}
+
+
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (the share of its wall
     time the device was busy, the wall ms, [(kernel, launches, device
@@ -986,6 +1235,7 @@ def main() -> int:
 
     policy_record = policy_phases(dev, custom)
     update_record = update_phases(dev, custom)
+    recurrent_record = recurrent_phases(dev, custom)
 
     per_step = f"ms per step of the {B3}-env 2v2 batch"
     record = {"kernels": [
@@ -1005,6 +1255,7 @@ def main() -> int:
          "unit": per_step},
         *policy_record,
         update_record,
+        recurrent_record,
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,126 +54,20 @@
 // view 0's G = 2 * players_per_team group uniforms, view 1's G, the two
 // uniforms of the kick angle, kickoff x per body, kickoff y per body.
 //
+// The device helpers shared with fused_recurrent.cu (dense, build_obs,
+// sample_groups, joint_action, pack, env_noise) are in policy_common.cuh.
+//
 // C interface for ctypes; each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cstring>
 
-#include "futbol_step.cuh"
+#include "policy_common.cuh"
 
 namespace {
 
 using namespace futbol;
-
-constexpr int kBlock = 32;      // envs per block: one per lane of warp 0
-constexpr int kWarps = 4;       // warps per block, sharing each dense layer
-constexpr int kThreads = kWarps * kBlock;
-constexpr int kChunk = 16;      // outputs per register tile
-constexpr int kMaxLayers = 8;   // dense layers per MLP
-constexpr int kChoices = 5;     // every action slot is a 5-way choice
-
-// A flat MLP: layer l reads in[l] inputs and writes out_pad[l] outputs
-// (the true width padded with zero columns to a multiple of kChunk);
-// W_l is [in, out_pad] row-major at w_off[l], b_l [out_pad] at b_off[l].
-struct Mlp {
-  int n_layers;
-  int in[kMaxLayers], out_pad[kMaxLayers], w_off[kMaxLayers], b_off[kMaxLayers];
-};
-
-// Observation scales, f32 reciprocals formed on the host.
-struct ObsConsts {
-  float inv_w, inv_h, inv_s;
-};
-
-// One env's activation column: row r at col[r * kBlock].
-struct Column {
-  float* a;
-  float* b;
-};
-
-// y = x @ W + b over one env's column (x and y distinct), tanh if asked,
-// for the output chunks o0 = o_begin, o_begin + o_step, ...
-__device__ __forceinline__ void dense(const float* __restrict__ w,
-                                      const float* __restrict__ bias, int in,
-                                      int out_pad, const float* x, float* y,
-                                      bool apply_tanh, int o_begin, int o_step) {
-#pragma unroll 1
-  for (int o0 = o_begin; o0 < out_pad; o0 += o_step) {
-    float acc[kChunk];
-    const float x0 = x[0];
-#pragma unroll
-    for (int q = 0; q < kChunk / 4; ++q) {
-      const float4 wv = __ldg(reinterpret_cast<const float4*>(w + o0) + q);
-      acc[4 * q] = wv.x * x0;
-      acc[4 * q + 1] = wv.y * x0;
-      acc[4 * q + 2] = wv.z * x0;
-      acc[4 * q + 3] = wv.w * x0;
-    }
-#pragma unroll 4
-    for (int k = 1; k < in; ++k) {
-      const float xk = x[k * kBlock];
-      const float4* row =
-          reinterpret_cast<const float4*>(w + static_cast<size_t>(k) * out_pad + o0);
-#pragma unroll
-      for (int q = 0; q < kChunk / 4; ++q) {
-        const float4 wv = __ldg(row + q);
-        acc[4 * q] = acc[4 * q] + wv.x * xk;
-        acc[4 * q + 1] = acc[4 * q + 1] + wv.y * xk;
-        acc[4 * q + 2] = acc[4 * q + 2] + wv.z * xk;
-        acc[4 * q + 3] = acc[4 * q + 3] + wv.w * xk;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const float v = acc[j] + __ldg(bias + o0 + j);
-      y[(o0 + j) * kBlock] = apply_tanh ? tanhf(v) : v;
-    }
-  }
-}
-
-// Body i of the view: the world body, or in the mirrored (team-1) view
-// the ball, then team 1's players, then team 0's.
-template <int NB, bool MIRROR>
-__device__ __forceinline__ int view_body(int j) {
-  constexpr int PPT = (NB - 1) / 2;
-  return !MIRROR || j == 0 ? j : (j <= PPT ? j + PPT : j - PPT);
-}
-
-// The observation of one view (env.observe, or env.mirror_obs of it for
-// MIRROR) into rows 0..F-1 of `x`, F = 4 * NB + 2, positions scaled by
-// the reciprocals as _obs_matrix scales them. With `obs` non-null, also
-// row f to obs[f * row_stride], zeros in rows F..f_pad-1.
-template <int NB, bool MIRROR>
-__device__ __forceinline__ void build_obs(const Env<NB>& e, const ObsConsts& oc,
-                                          float* x, float* __restrict__ obs,
-                                          size_t row_stride, int f_pad) {
-  constexpr int PPT = (NB - 1) / 2;
-  constexpr int F = 4 * NB + 2;
-  float v[F];
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const int i = view_body<NB, MIRROR>(j);
-    const float px = e.px[i] * oc.inv_w;
-    v[2 * j] = MIRROR ? 1.0f - px : px;
-    v[2 * j + 1] = e.py[i] * oc.inv_h;
-    const float vx = e.vx[i] * oc.inv_s;
-    v[2 * NB + 2 * j] = MIRROR ? -vx : vx;
-    v[2 * NB + 2 * j + 1] = e.vy[i] * oc.inv_s;
-  }
-  const int owner_p = e.poss - 1;
-  const float owns0 = (e.poss > 0 && owner_p < PPT) ? 1.0f : 0.0f;
-  const float owns1 = (e.poss > 0 && owner_p >= PPT) ? 1.0f : 0.0f;
-  v[4 * NB] = MIRROR ? owns1 : owns0;
-  v[4 * NB + 1] = MIRROR ? owns0 : owns1;
-#pragma unroll
-  for (int f = 0; f < F; ++f) x[f * kBlock] = v[f];
-  if (obs != nullptr) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) obs[f * row_stride] = v[f];
-    for (int f = F; f < f_pad; ++f) obs[f * row_stride] = 0.0f;
-  }
-}
 
 // The MLP over the column whose rows 0..in[0]-1 hold the input (in
 // col.a), computed by the block's warps together: warp w takes output
@@ -195,105 +89,6 @@ __device__ __forceinline__ const float* mlp_forward(const float* __restrict__ w,
   }
   return x;
 }
-
-// Inverse-CDF sampling of the G groups of 5 logits in rows g*5+i of
-// `logits`, with draw d0 + g for group g (sample_with_logp). Returns the
-// joint log-prob of the sampled indices.
-template <int G>
-__device__ __forceinline__ float sample_groups(const float* logits,
-                                               const float* __restrict__ table,
-                                               uint32_t seed, int n_draws, int B,
-                                               int step, int b, int d0,
-                                               int (&idx)[G]) {
-  float logp = 0.0f;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float l[kChoices], ex[kChoices];
-#pragma unroll
-    for (int i = 0; i < kChoices; ++i) l[i] = logits[(g * kChoices + i) * kBlock];
-    float m = l[0];
-#pragma unroll
-    for (int i = 1; i < kChoices; ++i) m = fmaxf(m, l[i]);
-#pragma unroll
-    for (int i = 0; i < kChoices; ++i) ex[i] = expf(l[i] - m);
-    float z = ex[0];
-#pragma unroll
-    for (int i = 1; i < kChoices; ++i) z = z + ex[i];
-    const float logz = logf(z);
-    const float u = uniform_draw(table, seed, n_draws, B, step, b, d0 + g) * z;
-    float cum = ex[0];
-    int k = u > cum ? 1 : 0;
-#pragma unroll
-    for (int i = 1; i < kChoices - 1; ++i) {
-      cum = cum + ex[i];
-      k += u > cum ? 1 : 0;
-    }
-    float taken = l[0] - m - logz;
-#pragma unroll
-    for (int i = 1; i < kChoices; ++i) taken = k == i ? l[i] - m - logz : taken;
-    idx[g] = k;
-    logp = g == 0 ? taken : logp + taken;
-  }
-  return logp;
-}
-
-// The world-frame joint action from both views' samples: team 0 as
-// sampled, team 1's directions un-mirrored (left <-> right).
-template <int NPL>
-__device__ __forceinline__ void joint_action(const int (&ia)[NPL],
-                                             const int (&ib)[NPL],
-                                             int (&dirs)[NPL], int (&acts)[NPL]) {
-  constexpr int PPT = NPL / 2;
-#pragma unroll
-  for (int p = 0; p < PPT; ++p) {
-    const int d = ib[2 * p];
-    dirs[p] = ia[2 * p];
-    acts[p] = ia[2 * p + 1];
-    dirs[PPT + p] = d == 2 ? 4 : (d == 4 ? 2 : d);
-    acts[PPT + p] = ib[2 * p + 1];
-  }
-}
-
-// Dirs and acts of one view packed at 3 bits per player.
-template <int NPL>
-__device__ __forceinline__ void pack(const int (&idx)[NPL], int& dpack, int& apack) {
-  dpack = 0;
-  apack = 0;
-#pragma unroll
-  for (int p = 0; p < NPL / 2; ++p) {
-    dpack |= idx[2 * p] << (3 * p);
-    apack |= idx[2 * p + 1] << (3 * p);
-  }
-}
-
-// The kick angle and kickoff noise of a step: draws 2G.. of the step.
-template <int NB>
-__device__ __forceinline__ float env_noise(const float* __restrict__ table,
-                                           uint32_t seed, int n_draws, int B,
-                                           int step, int b, float kick_noise,
-                                           float (&nzx)[NB], float (&nzy)[NB]) {
-  constexpr int D = 2 * (NB - 1);
-  const float theta = normal_from(uniform_draw(table, seed, n_draws, B, step, b, D),
-                                  uniform_draw(table, seed, n_draws, B, step, b, D + 1)) *
-                      kick_noise;
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    nzx[i] = pm1_from(uniform_draw(table, seed, n_draws, B, step, b, D + 2 + i));
-    nzy[i] = pm1_from(uniform_draw(table, seed, n_draws, B, step, b, D + 2 + NB + i));
-  }
-  return theta;
-}
-
-struct CollectOut {
-  float* obs;       // [2, f_pad, T, B]
-  int* dirs;        // [T, 2, B] packed, each view in its own frame
-  int* acts;        // [T, 2, B]
-  float* logp;      // [T, 2, B]
-  float* value;     // [T, 2, B]
-  float* reward;    // [T, 2, B], view k carries team k's reward
-  int* done;        // [T, 2, B]
-  float* last_value;  // [2, B]
-};
 
 // One block's whole collect (the body of collect_kernel), run by all its
 // threads: lane l of warp 0 owns env blockIdx.x * kBlock + l and alone
@@ -486,34 +281,6 @@ selfplay_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_in,
                      reward, goals, dirs_out, acts_out, table, seed, B, T, c, k, oc);
 }
 
-// Host side: the MLP table from [n_layers, 4] ints (in, out_pad, w_off,
-// b_off); false if it does not fit the kernel's limits.
-bool make_mlp(const int* dims, int n_layers, Mlp& m, int& rows) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return false;
-  m.n_layers = n_layers;
-  for (int l = 0; l < n_layers; ++l) {
-    m.in[l] = dims[4 * l];
-    m.out_pad[l] = dims[4 * l + 1];
-    m.w_off[l] = dims[4 * l + 2];
-    m.b_off[l] = dims[4 * l + 3];
-    if (m.in[l] < 1 || m.out_pad[l] < kChunk || m.out_pad[l] % kChunk != 0 ||
-        m.w_off[l] % 4 != 0)
-      return false;
-    if (l > 0 && m.in[l] > m.out_pad[l - 1]) return false;
-    rows = m.out_pad[l] > rows ? m.out_pad[l] : rows;
-  }
-  return true;
-}
-
-// Sets the kernel's dynamic shared memory limit to the plan's size; an
-// error for a plan the card cannot hold.
-template <typename K>
-cudaError_t prepare(K kernel, int rows, size_t& smem_bytes) {
-  smem_bytes = 2 * static_cast<size_t>(rows) * kBlock * sizeof(float);
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes));
-}
-
 }  // namespace
 
 extern "C" {
@@ -544,7 +311,7 @@ int futbol_fused_collect(const float* sf_in, const int* si_in, float* sf_out,
   switch (n_bodies) {
 #define FUTBOL_CASE(NB)                                                          \
   case NB:                                                                       \
-    err = prepare(collect_kernel<NB>, rows, smem);                               \
+    err = prepare(collect_kernel<NB>, 2 * rows, smem);                           \
     if (err != cudaSuccess) return err;                                          \
     collect_kernel<NB><<<grid, kThreads, smem, s>>>(sf_in, si_in, sf_out, si_out,  \
                                                   weights, m, rows, out, table,  \
@@ -590,7 +357,7 @@ int futbol_fused_selfplay(const float* sf_in, const int* si_in, float* sf_out,
   switch (n_bodies) {
 #define FUTBOL_CASE(NB)                                                          \
   case NB:                                                                       \
-    err = prepare(selfplay_kernel<NB>, rows, smem);                              \
+    err = prepare(selfplay_kernel<NB>, 2 * rows, smem);                          \
     if (err != cudaSuccess) return err;                                          \
     selfplay_kernel<NB><<<grid, kThreads, smem, s>>>(                              \
         sf_in, si_in, sf_out, si_out, weights_a, ma, weights_b, mb, rows,        \

@@ -1,5 +1,5 @@
 // The FutbolEnv step as CUDA device code, shared by every kernel of the
-// package (fused_rollout.cu, fused_policy.cu).
+// package (fused_rollout.cu, fused_policy.cu, fused_recurrent.cu).
 //
 // The step is the scalar-SSA pipeline of gym_futbol_tpu_torch/env.py
 // step_scalars with auto-reset, operation for operation in float32, for

@@ -10,8 +10,10 @@ un-mirrored) and plays ``n_envs`` matches of ``n_steps`` in lockstep.
 - :func:`evaluate_fused`: two MLP policies, all steps in one launch of
   the self-play kernel on a CUDA device
   (:mod:`gym_futbol_tpu_torch.ops.fused_actor`).
+- :func:`evaluate_recurrent`: a recurrent team 0 with its LSTM carry,
+  against a stateless policy or a second recurrent model.
 
-Both return the same metrics: total goals per team, goals per match,
+All three return the same metrics: total goals per team, goals per match,
 win and draw rates over the per-env goal totals, and the mean team-0
 shaped reward.
 """
@@ -83,6 +85,47 @@ def evaluate(
     _, outs = rollout(state, policy, gen, params, n_steps)
     per_env = outs.info["goal"].sum(0).T            # [2, B]
     return _match_metrics(per_env, outs.team_reward[..., 0].mean(), n_envs)
+
+
+@torch.no_grad()
+def evaluate_recurrent(
+    params: EnvParams, model, policy_b: TeamPolicy | None = None,
+    model_b=None, n_envs: int = 1024, n_steps: int = 300, seed: int = 0,
+) -> dict:
+    """Play ``n_envs`` matches of ``n_steps`` with a recurrent team 0
+    (:class:`~gym_futbol_tpu_torch.models.recurrent.RecurrentActorCritic`),
+    one batched step at a time on the model's device: its carry is
+    threaded through the steps and zeroed where an episode ends. Team 1
+    plays ``model_b``, a second recurrent model with its own carry on the
+    mirrored view, or else the stateless ``policy_b`` (default uniform
+    random). Same metrics as :func:`evaluate`."""
+    from .models.policy import sample_actions
+    from .models.recurrent import reset_carry_where_done
+    from .vector import step_batch
+
+    policy_b = policy_b or random_team_policy(params)
+    gen = torch.Generator(device=model.logits.weight.device).manual_seed(seed)
+    state, obs = reset_batch(gen, params, n_envs, device=gen.device)
+    carry, carry_b = model.initial_carry(n_envs), model.initial_carry(n_envs)
+    goals = torch.zeros((2, n_envs), dtype=torch.int32, device=gen.device)
+    reward0 = torch.zeros((), device=gen.device)
+    for _ in range(n_steps):
+        carry, (logits, _) = model(carry, obs)
+        act_a = sample_actions(logits, generator=gen)[0]
+        obs_b = mirror_obs(obs, params)
+        if model_b is not None:
+            carry_b, (logits_b, _) = model_b(carry_b, obs_b)
+            act_b = sample_actions(logits_b, generator=gen)[0]
+        else:
+            act_b = policy_b(gen, obs_b)
+        state, out = step_batch(
+            state, torch.cat([act_a, mirror_actions(act_b)], dim=-2), params, gen)
+        carry = reset_carry_where_done(carry, out.done)
+        carry_b = reset_carry_where_done(carry_b, out.done)
+        goals += out.info["goal"].T.to(torch.int32)
+        reward0 += out.team_reward[:, 0].mean()
+        obs = out.obs
+    return _match_metrics(goals, reward0 / n_steps, n_envs)
 
 
 def uniform_random_weights_like(weights: tuple) -> tuple:

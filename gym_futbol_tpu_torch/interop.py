@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .models.policy import ActorCritic
+from .models.recurrent import GATES, RecurrentActorCritic
 from .types import EnvParams, EnvState, RewardConfig
 
 
@@ -67,6 +68,42 @@ def actor_critic_from_flax(variables, n_players: int,
             bias = np.asarray(dense[f"Dense_{i}"]["bias"], np.float32)
             layer.weight.copy_(torch.tensor(kernels[i].T))
             layer.bias.copy_(torch.tensor(bias))
+    return model
+
+
+def recurrent_actor_critic_from_flax(variables, n_players: int,
+                                     device: torch.device | str = "cuda"
+                                     ) -> RecurrentActorCritic:
+    """Flax ``RecurrentActorCritic`` variables as a nested dict of numpy
+    arrays (``params/Dense_i/{kernel, bias}`` for the torso layers, then
+    the logits and value heads; ``params/OptimizedLSTMCell_0`` with the
+    input kernels ``i{g}/kernel`` and the recurrent ``h{g}/{kernel,
+    bias}``, g in i, f, g, o) -> this package's
+    :class:`RecurrentActorCritic` with the same weights."""
+    p = variables["params"]
+    cell = p["OptimizedLSTMCell_0"]
+
+    def arr(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    n_torso = len(p) - 3
+    hidden = [np.shape(p[f"Dense_{i}"]["kernel"])[1] for i in range(n_torso)]
+    obs_dim = np.shape(cell["ii"]["kernel"] if not n_torso
+                       else p["Dense_0"]["kernel"])[0]
+    lstm_size = np.shape(cell["hi"]["kernel"])[0]
+    model = RecurrentActorCritic(n_players, obs_dim, hidden, lstm_size,
+                                 device=device)
+    dense = [*model.torso, model.logits, model.value]
+    with torch.no_grad():
+        for i, layer in enumerate(dense):
+            layer.weight.copy_(arr(p[f"Dense_{i}"]["kernel"]).T)
+            layer.bias.copy_(arr(p[f"Dense_{i}"]["bias"]))
+        model.cell_i.weight.copy_(torch.cat(
+            [arr(cell[f"i{g}"]["kernel"]) for g in GATES], 1).T)
+        model.cell_h.weight.copy_(torch.cat(
+            [arr(cell[f"h{g}"]["kernel"]) for g in GATES], 1).T)
+        model.cell_h.bias.copy_(torch.cat(
+            [arr(cell[f"h{g}"]["bias"]) for g in GATES]))
     return model
 
 

@@ -21,6 +21,11 @@ from .fused_collect import (  # noqa: F401
     fused_collect,
     fused_collect_reference,
 )
+from .fused_recurrent import (  # noqa: F401
+    flatten_recurrent_actor_critic,
+    fused_recurrent_collect,
+    fused_recurrent_collect_reference,
+)
 from .fused_update import (  # noqa: F401
     fused_minibatch_grad,
     fused_minibatch_grad_reference,

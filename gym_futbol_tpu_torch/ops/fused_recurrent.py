@@ -1,0 +1,311 @@
+"""Recurrent (LSTM) self-play experience collection in one launch: the
+CUDA kernel's wrapper and its plain PyTorch version.
+
+Counterpart of :mod:`gym_futbol_tpu.ops.fused_recurrent`: the collect of
+:mod:`gym_futbol_tpu_torch.ops.fused_collect` with an LSTM cell between
+the torso and the heads. Each step, both views (view 0 is team 0, view
+1 team 1 in its mirrored frame) go through one
+:class:`~gym_futbol_tpu_torch.models.recurrent.RecurrentActorCritic`
+(tanh torso, the cell on the view's own carry, logits and value heads);
+each view's actions are sampled with their joint log-prob, team 1's
+directions are un-mirrored, the env steps with auto-reset, and both
+views' carries are zeroed where the episode ended. After the loop come
+the bootstrap values: a forward of the carried state on the carried
+(post-reset) carries, whose own carry advance is thrown away; the
+carries returned are those from before it. On a CUDA tensor
+:func:`fused_recurrent_collect` runs it all in one launch of
+``csrc/fused_recurrent.cu``; on a CPU tensor it runs the plain version
+:func:`fused_recurrent_collect_reference`.
+
+Weights are the flat tuple of :func:`flatten_recurrent_actor_critic`.
+Carries are feature-major ``[2, H, B]`` f32 (view 0, view 1). The input
+carries are read, never written: the BPTT update needs the carry from
+before the window.
+
+OUTPUTS (the JAX package's, without its ``(B//128, 128)`` split):
+
+    obs        [2, F_pad, T, B] f32  feature-major, pad rows zero
+    dirs, acts [T, 2, B] i32         packed 3 bits per player
+    logp       [T, 2, B] f32         joint log-prob of the sampled actions
+    value      [T, 2, B] f32
+    reward     [T, 2, B] f32         view k carries team k's reward
+    done       [T, 2, B] i32
+    last_value [2, B] f32            bootstrap values, both views
+    carry_c, carry_h [2, H, B] f32   the carries after the window
+
+The torso must have at least one layer: the JAX kernel, given an empty
+torso, feeds ``tanh(obs)`` to the cell where the flax model feeds the raw
+observation; here an empty torso raises, as it does for ``fused_collect``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import env as env_core
+from ..models.policy import N_CHOICES
+from ..models.recurrent import RecurrentActorCritic, lstm_cell
+from ..types import EnvParams
+from .fused_actor import (
+    dense_rows,
+    joint_action,
+    obs_matrix,
+    obs_scales,
+    pack_mlp,
+    pack_rows,
+    sample_with_logp,
+    step_draws,
+)
+from .fused_collect import feature_rows
+from .fused_rollout import (
+    LAUNCHES,
+    _check_state,
+    _kernel_args,
+    _raise_on_error,
+    check_uniforms,
+    n_draws_per_step,
+    split_state,
+    step_uniforms,
+)
+
+__all__ = [
+    "flatten_recurrent_actor_critic",
+    "fused_recurrent_collect",
+    "fused_recurrent_collect_reference",
+    "n_draws_per_step",
+]
+
+
+def flatten_recurrent_actor_critic(model: RecurrentActorCritic) -> tuple:
+    """A :class:`RecurrentActorCritic`'s weights as the flat kernel-order
+    tuple of the JAX package::
+
+        (Wt1, bt1, ..., Wtk, btk,                     # torso, tanh after each
+         Wi [n_t, 4H], Wh [H, 4H], bh [4H, 1],        # the cell, gates i|f|g|o
+         Wl [H, G*5], bl [G*5, 1], Wv [H, 1], bv [1, 1])   # heads
+
+    each ``W`` ``[in, out]`` f32 and ``b`` ``[out, 1]``."""
+    def wb(layer):
+        return (layer.weight.detach().t().contiguous(),
+                layer.bias.detach().reshape(-1, 1).contiguous())
+
+    out = [t for layer in model.torso for t in wb(layer)]
+    out += [model.cell_i.weight.detach().t().contiguous(), *wb(model.cell_h)]
+    out += [*wb(model.logits), *wb(model.value)]
+    return tuple(out)
+
+
+def _check_weights(weights: tuple, params: EnvParams) -> tuple[int, int]:
+    """Validate a flat tuple; returns (torso layers, LSTM size H)."""
+    n_torso = (len(weights) - 7) // 2
+    if len(weights) < 9 or len(weights) % 2 == 0:
+        raise ValueError(
+            "the recurrent actor-critic needs a torso of at least one layer "
+            "(the JAX kernel's empty-torso forward applies a tanh the model "
+            "does not) and the flat tuple of flatten_recurrent_actor_critic")
+    if any(w.dtype != torch.float32 for w in weights):
+        raise TypeError("weights must be float32")
+    prev = env_core.obs_size(params)
+    for li in range(n_torso):
+        w, b = weights[2 * li], weights[2 * li + 1]
+        if w.dim() != 2 or w.shape[0] != prev or tuple(b.shape) != (w.shape[1], 1):
+            raise ValueError(f"torso layer {li} must be W [{prev}, out], b [out, 1]; "
+                             f"got {tuple(w.shape)}, {tuple(b.shape)}")
+        prev = w.shape[1]
+    wi, wh, bh, wl, bl, wv, bv = weights[2 * n_torso:]
+    hs = wh.shape[0]
+    n_logits = params.players_per_team * 2 * N_CHOICES
+    shapes = ((wi, (prev, 4 * hs)), (wh, (hs, 4 * hs)), (bh, (4 * hs, 1)),
+              (wl, (hs, n_logits)), (bl, (n_logits, 1)), (wv, (hs, 1)),
+              (bv, (1, 1)))
+    for w, shape in shapes:
+        if tuple(w.shape) != shape:
+            raise ValueError(f"the cell and heads must be Wi [{prev}, 4H], Wh "
+                             f"[H, 4H], bh [4H, 1], Wl [H, {n_logits}], bl, Wv "
+                             f"[H, 1], bv; got {tuple(w.shape)} for {shape}")
+    return n_torso, hs
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))`` written out, as the kernel rounds it."""
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def _forward(x: torch.Tensor, weights: tuple, n_torso: int, c: torch.Tensor,
+             h: torch.Tensor):
+    """One view's forward on ``x`` ``[F, B]`` and its carry ``[H, B]``:
+    (logits ``[G*5, B]``, value ``[B]``, c', h'). The cell's two products
+    are one sum over the stacked column ``[t; h]``, inputs in that order,
+    then the bias."""
+    t = x
+    for li in range(n_torso):
+        t = torch.tanh(dense_rows(t, weights[2 * li], weights[2 * li + 1]))
+    wi, wh, bh, wl, bl, wv, bv = weights[2 * n_torso:]
+    gates = dense_rows(torch.cat([t, h]), torch.cat([wi, wh]), bh)
+    c, h = lstm_cell(gates, c, dim=0, sigmoid=_sigmoid)
+    return dense_rows(h, wl, bl), dense_rows(h, wv, bv)[0], c, h
+
+
+def fused_recurrent_collect_reference(
+    statef: torch.Tensor, statei: torch.Tensor, weights: tuple,
+    carry_c: torch.Tensor, carry_h: torch.Tensor, params: EnvParams,
+    n_steps: int | None = None, *, uniforms: torch.Tensor | None = None,
+    seed: int | None = None,
+):
+    """The kernel's computation as T steps of row-matrix code.
+
+    Exactly one draw source: ``uniforms`` f32 ``[T, n_draws, B]`` or
+    ``seed`` (the kernel's Philox stream), drawn in ``fused_collect``'s
+    order. Returns (statef', statei', obs, dirs, acts, logp, value,
+    reward, done, last_value, carry_c', carry_h') as listed in the module
+    docstring.
+    """
+    if (uniforms is None) == (seed is None):
+        raise ValueError("give exactly one of uniforms, seed")
+    n_torso, _ = _check_weights(weights, params)
+    n, ppt = params.n_bodies, params.players_per_team
+    g = 2 * ppt
+    f, f_pad = env_core.obs_size(params), feature_rows(params)
+    n_draws = n_draws_per_step(params)
+    b = statef.shape[1]
+    if uniforms is not None:
+        n_steps = uniforms.shape[0]
+    px, py, vx, vy, poss, s0, s1, t = split_state(statef, statei, n)
+    cc, hh = list(carry_c), list(carry_h)
+    obs = statef.new_zeros((2, f_pad, n_steps, b))
+    rows = {k: [] for k in ("dirs", "acts", "logp", "value", "reward", "done")}
+    for k in range(n_steps):
+        u = step_uniforms(uniforms, seed, k, n_draws, b, statef.device)
+        idx = []
+        for v in range(2):
+            x = obs_matrix(px, py, vx, vy, poss, params, v == 1)
+            obs[v, :f, k] = x
+            logits, value, cc[v], hh[v] = _forward(x, weights, n_torso, cc[v], hh[v])
+            iv, logp = sample_with_logp(logits, g, u[v * g:(v + 1) * g])
+            idx.append(iv)
+            rows["logp"].append(logp)
+            rows["value"].append(value)
+            dpack, apack = pack_rows(iv, ppt)
+            rows["dirs"].append(dpack)
+            rows["acts"].append(apack)
+        dirs, acts = joint_action(idx[0], idx[1], ppt)
+        theta, noise_x, noise_y = step_draws(u, params)
+        s = env_core.step_scalars(px, py, vx, vy, poss, s0, s1, t, dirs, acts,
+                                  theta, noise_x, noise_y, params)
+        done = s.done.to(torch.int32)
+        rows["reward"] += [s.r0, s.r1]
+        rows["done"] += [done, done]
+        # both views' carries zeroed where the episode ended
+        keep = (1 - done).to(torch.float32)
+        cc = [c * keep for c in cc]
+        hh = [h * keep for h in hh]
+        s = env_core.auto_reset_scalars(s)
+        px, py, vx, vy = s.px, s.py, s.vx, s.vy
+        poss, s0, s1, t = s.possession, s.score0, s.score1, s.t
+    last_value = torch.stack([
+        _forward(obs_matrix(px, py, vx, vy, poss, params, v == 1), weights,
+                 n_torso, cc[v], hh[v])[1]
+        for v in range(2)])
+    per_step = {k: torch.stack(r).reshape(n_steps, 2, b) for k, r in rows.items()}
+    return (torch.stack(px + py + vx + vy),
+            torch.stack([poss, s0, s1, t]).to(torch.int32), obs,
+            per_step["dirs"], per_step["acts"], per_step["logp"],
+            per_step["value"], per_step["reward"], per_step["done"], last_value,
+            torch.stack(cc), torch.stack(hh))
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+
+def _unit_major(hs: int) -> torch.Tensor:
+    """Column order of the kernel's cell: column 4u + g is gate g of unit
+    u (the JAX layout has gate g's block at columns g*H..g*H+H-1)."""
+    return torch.arange(4 * hs).reshape(4, hs).t().reshape(-1)
+
+
+def fused_recurrent_collect(
+    statef: torch.Tensor, statei: torch.Tensor, weights: tuple,
+    carry_c: torch.Tensor, carry_h: torch.Tensor, seed: int,
+    params: EnvParams, n_steps: int, uniforms: torch.Tensor | None = None,
+):
+    """Collect ``n_steps`` of recurrent self-play experience (module
+    docstring).
+
+    ``weights``: the flat tuple of :func:`flatten_recurrent_actor_critic`
+    (the kernel takes H a multiple of 4, 4H at most 512 and the cell's
+    input t and h together at most 512 rows). ``carry_c``/``carry_h``
+    f32 ``[2, H, B]``, left unchanged. Draws come from Philox keyed by
+    ``seed`` (an int; a new seed for each call), or from ``uniforms`` f32
+    ``[n_steps, n_draws, B]``. Returns (statef', statei', obs, dirs, acts,
+    logp, value, reward, done, last_value, carry_c', carry_h').
+    """
+    b = _check_state(statef, statei, params)
+    n_torso, hs = _check_weights(weights, params)
+    for name, c in (("carry_c", carry_c), ("carry_h", carry_h)):
+        if tuple(c.shape) != (2, hs, b) or c.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [2, {hs}, {b}], got "
+                             f"{c.dtype} {tuple(c.shape)}")
+    if any(t.device != statef.device for t in (*weights, carry_c, carry_h)):
+        raise ValueError("weights and carries must be on the state's device")
+    if n_steps < 1:
+        raise ValueError("n_steps must be >= 1")
+    check_uniforms(uniforms, n_steps, params, statef)
+    if statef.device.type == "cpu":
+        return fused_recurrent_collect_reference(
+            statef, statei, weights, carry_c, carry_h, params, n_steps,
+            uniforms=uniforms, seed=None if uniforms is not None else seed)
+    if hs % 4:
+        raise ValueError(f"the kernel takes an LSTM size that is a multiple "
+                         f"of 4, got {hs}")
+    if not (carry_c.is_contiguous() and carry_h.is_contiguous()):
+        raise ValueError("carry_c and carry_h must be contiguous")
+    b, c_consts, stream = _kernel_args(statef, statei, params)
+    wi, wh, bh = weights[2 * n_torso:2 * n_torso + 3]
+    wl, bl, wv, bv = weights[2 * n_torso + 3:]
+    perm = _unit_major(hs).to(statef.device)
+    # torso layers; the cell over [t; h], its columns unit-major; the
+    # logits and value heads as one layer
+    layers = list(zip(weights[:2 * n_torso:2], weights[1:2 * n_torso:2]))
+    layers.append((torch.cat([wi, wh])[:, perm], bh[perm]))
+    layers.append((torch.cat([wl, wv], 1), torch.cat([bl, bv], 0)))
+    flat, table = pack_mlp(layers)
+    f_pad = feature_rows(params)
+    dev = statef.device
+
+    def out(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    sf, si = torch.empty_like(statef), torch.empty_like(statei)
+    obs = out(2, f_pad, n_steps, b)
+    dirs, acts, done = (out(n_steps, 2, b, dtype=torch.int32) for _ in range(3))
+    logp, value, reward = (out(n_steps, 2, b) for _ in range(3))
+    last_value = out(2, b)
+    cc, hh = torch.empty_like(carry_c), torch.empty_like(carry_h)
+    scales = (ctypes.c_float * 3)(*obs_scales(params))
+    from . import _build
+
+    lib = _build.load()
+    err = lib.futbol_fused_recurrent(
+        statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
+        flat.data_ptr(), table, n_torso, hs, carry_c.data_ptr(),
+        carry_h.data_ptr(), cc.data_ptr(), hh.data_ptr(), obs.data_ptr(),
+        dirs.data_ptr(), acts.data_ptr(), logp.data_ptr(), value.data_ptr(),
+        reward.data_ptr(), done.data_ptr(), last_value.data_ptr(),
+        None if uniforms is None else uniforms.data_ptr(),
+        seed & 0xFFFFFFFF, params.n_bodies, b, n_steps, f_pad,
+        params.substeps, params.solver_iterations, params.max_steps,
+        c_consts, len(c_consts), scales, stream,
+    )
+    _raise_on_error(err, "fused_recurrent_collect")
+    LAUNCHES["fused_recurrent_collect"] += 1
+    return (sf, si, obs, dirs, acts, logp, value, reward, done, last_value,
+            cc, hh)

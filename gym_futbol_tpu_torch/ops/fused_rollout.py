@@ -31,7 +31,7 @@ from ..types import EnvParams, EnvState
 # wrapper adds one where it launches its kernel.
 LAUNCHES = {"fused_rollout": 0, "fused_rollout_replay": 0,
             "fused_collect": 0, "fused_selfplay_rollout": 0,
-            "fused_minibatch_grad": 0}
+            "fused_minibatch_grad": 0, "fused_recurrent_collect": 0}
 
 
 def reset_launch_counts() -> None:

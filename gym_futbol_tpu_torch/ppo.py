@@ -81,12 +81,22 @@ class Transition:
     done: torch.Tensor
 
 
+@torch.no_grad()
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
+    """optax's ``clip_by_global_norm``, in place: when the global norm of
+    ``grads`` reaches ``max_norm`` each is scaled to ``g / norm *
+    max_norm`` (not ``clip_grad_norm_``'s ``max_norm / (norm + 1e-6)``)."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    scale = torch.where(norm < max_norm, 1.0, max_norm)
+    div = torch.where(norm < max_norm, 1.0, norm)
+    for g in grads:
+        g.div_(div).mul_(scale)
+
+
 class Optimizer:
     """optax's ``chain(clip_by_global_norm(max_grad_norm), adam(lr))``
-    over ``params``, read from their ``.grad``: the gradients are scaled
-    by ``max_norm / norm`` when their global norm reaches ``max_norm``
-    (``g / norm * max_norm``, as optax; not ``clip_grad_norm_``'s
-    ``max_norm / (norm + 1e-6)``), then Adam (b1 0.9, b2 0.999, eps 1e-8)
+    over ``params``, read from their ``.grad``: the gradients are clipped
+    (:func:`clip_by_global_norm`), then Adam (b1 0.9, b2 0.999, eps 1e-8)
     steps with the learning rate of update ``k`` (0-based):
     ``lr + (lr_final - lr) * min(k / steps, 1)`` over ``steps`` updates,
     or ``lr`` throughout when ``steps`` is None."""
@@ -108,14 +118,8 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
-    @torch.no_grad()
     def clip_grads(self) -> None:
-        grads = [p.grad for p in self.params]
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        scale = torch.where(norm < self.max_grad_norm, 1.0, self.max_grad_norm)
-        div = torch.where(norm < self.max_grad_norm, 1.0, norm)
-        for g in grads:
-            g.div_(div).mul_(scale)
+        clip_by_global_norm([p.grad for p in self.params], self.max_grad_norm)
 
     def step(self) -> None:
         """Clip the gradients, then one Adam step at ``lr_at(count)``."""
@@ -180,29 +184,44 @@ def collect_rollout(
     (runner, traj ``[T, 2B, ...]``, bootstrap value ``[2B]``)."""
     model = runner.model
     _check_model(model, env_params)
-    b = runner.obs.shape[0]
     state, obs, gen = runner.env_state, runner.obs, runner.generator
     steps = []
     for t in range(cfg.rollout_steps):
         obs2 = _both_views(obs, env_params)
         logits, value = model(obs2)
         u = None if action_uniforms is None else action_uniforms[t]
-        action2, logp = sample_actions(logits, u, generator=gen)
-        joint = torch.cat(
-            [action2[:b], env_core.mirror_actions(action2[b:])], dim=1)
-        state, out = step_batch(state, joint, env_params, gen)
-        dirs, acts = pack_actions(action2)
-        steps.append(Transition(
-            obs=obs2, dirs=dirs, acts=acts, logp=logp, value=value,
-            reward=torch.cat([out.team_reward[:, 0], out.team_reward[:, 1]]),
-            done=torch.cat([out.done, out.done]),
-        ))
+        state, out, tr = selfplay_step(state, obs2, logits, value, u, gen,
+                                       env_params)
+        steps.append(tr)
         obs = out.obs
-    traj = Transition(**{
+    _, last_value = model(_both_views(obs, env_params))
+    return (runner.replace(env_state=state, obs=obs), stack_steps(steps),
+            last_value)
+
+
+def selfplay_step(state: EnvState, obs2: torch.Tensor, logits: torch.Tensor,
+                  value: torch.Tensor, uniforms: torch.Tensor | None,
+                  generator: torch.Generator, env_params: EnvParams):
+    """One self-play step from both views' ``[2B]`` logits: sample the
+    actions (``uniforms`` ``[G, 2B]`` or the generator), un-mirror team
+    1's, step the env. Returns (state, step output, the step's
+    :class:`Transition` with ``[2B]`` fields)."""
+    b = obs2.shape[0] // 2
+    action2, logp = sample_actions(logits, uniforms, generator=generator)
+    joint = torch.cat([action2[:b], env_core.mirror_actions(action2[b:])], dim=1)
+    state, out = step_batch(state, joint, env_params, generator)
+    dirs, acts = pack_actions(action2)
+    return state, out, Transition(
+        obs=obs2, dirs=dirs, acts=acts, logp=logp, value=value,
+        reward=torch.cat([out.team_reward[:, 0], out.team_reward[:, 1]]),
+        done=torch.cat([out.done, out.done]))
+
+
+def stack_steps(steps: list[Transition]) -> Transition:
+    """Per-step transitions -> one with ``[T, ...]`` fields."""
+    return Transition(**{
         f.name: torch.stack([getattr(s, f.name) for s in steps])
         for f in dataclasses.fields(Transition)})
-    _, last_value = model(_both_views(obs, env_params))
-    return runner.replace(env_state=state, obs=obs), traj, last_value
 
 
 @torch.no_grad()
@@ -297,6 +316,18 @@ def ppo_loss(
     (total loss, metrics)."""
     logit_rows, value = _forward_fm(model, obs_fm)
     logp, entropy = action_log_prob_and_entropy_packed(logit_rows.T, dirs, acts)
+    return clipped_surrogate(logp, entropy, value, logp_old, value_old, adv,
+                             returns, cfg)
+
+
+def clipped_surrogate(
+    logp: torch.Tensor, entropy: torch.Tensor, value: torch.Tensor,
+    logp_old: torch.Tensor, value_old: torch.Tensor, adv: torch.Tensor,
+    returns: torch.Tensor, cfg: PPOConfig,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """PPO's loss from the new log-probs, entropies and values and the
+    behaviour policy's, over tensors of any one shape (means over all of
+    it): (total loss, metrics)."""
     ratio = torch.exp(logp - logp_old)
 
     norm_adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)

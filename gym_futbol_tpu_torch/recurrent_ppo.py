@@ -1,0 +1,169 @@
+"""Recurrent (LSTM) PPO in PyTorch.
+
+Counterpart of :mod:`gym_futbol_tpu.recurrent_ppo`, the clipped-surrogate
+companion of recurrent A2C (:mod:`gym_futbol_tpu_torch.a2c`), with the
+same collect and runner:
+
+- collect: :func:`a2c.collect_recurrent_rollout`, or
+  :func:`a2c.collect_recurrent_rollout_fused` on the
+  ``fused_recurrent_collect`` kernel: obs ``[T, 2B, F]``, each view's
+  carry zeroed at episode ends;
+- update: ``cfg.epochs`` x ``cfg.minibatches`` clipped-surrogate steps
+  whose minibatches split the SEQUENCE axis (the 2B self-play views),
+  never the time axis: each re-runs the LSTM over the whole window from
+  the carry its sequences started it with, so gradients flow through
+  time. An epoch permutes contiguous blocks of ``cfg.shuffle_block``
+  sequences (degrading to the largest divisor, as ``ppo``'s blocks), and
+  a block count the minibatches do not divide is refused, where the JAX
+  package drops the leftover blocks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import ppo
+from .a2c import (
+    RecurrentRunnerState,
+    _flat_carry,
+    collect_recurrent_rollout,
+    init_recurrent_runner,
+)
+from .models.policy import action_log_prob_and_entropy_packed
+from .models.recurrent import RecurrentActorCritic
+from .ppo import (
+    PPOConfig,
+    Transition,
+    _epoch_perms,
+    _mean_metrics,
+    _shuffle_block_for,
+    clipped_surrogate,
+    compute_gae,
+)
+from .types import EnvParams
+
+__all__ = [
+    "RecurrentPPOConfig",
+    "init_recurrent_ppo_runner",
+    "make_optimizer",
+    "recurrent_ppo_loss",
+    "train_iteration_recurrent_ppo",
+    "update_epochs_recurrent",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class RecurrentPPOConfig(PPOConfig):
+    """:class:`ppo.PPOConfig` with the recurrent defaults: a short window
+    (the carry holds the context across iterations) and
+    ``shuffle_block`` counted in SEQUENCES."""
+
+    rollout_steps: int = 16
+    shuffle_block: int = 512
+
+
+def make_optimizer(model: RecurrentActorCritic, cfg: PPOConfig,
+                   total_iters: int | None = None) -> ppo.Optimizer:
+    """:func:`ppo.make_optimizer`: Adam, the clip, the optional anneal."""
+    return ppo.make_optimizer(model, cfg, total_iters)
+
+
+def init_recurrent_ppo_runner(
+    generator: torch.Generator, model: RecurrentActorCritic,
+    env_params: EnvParams, cfg: PPOConfig, n_envs: int,
+    total_iters: int | None = None,
+) -> RecurrentRunnerState:
+    """Recurrent A2C's runner (:func:`a2c.init_recurrent_runner`) with
+    :func:`make_optimizer`'s optimiser."""
+    return init_recurrent_runner(generator, model, env_params, cfg, n_envs,
+                                 optimizer=make_optimizer(model, cfg, total_iters))
+
+
+def recurrent_ppo_loss(
+    model: RecurrentActorCritic, traj: Transition, init_carry,
+    adv: torch.Tensor, returns: torch.Tensor, cfg: PPOConfig,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The clipped-surrogate loss over a ``[T, S]`` window of S
+    sequences: the model re-run from ``init_carry`` (``[S, H]`` each, the
+    carry the behaviour policy started the window with), resetting at the
+    window's episode ends as the collect did, so that with unchanged
+    weights the ratio is 1. The advantage is normalised over all T*S
+    elements. Returns (total loss, metrics)."""
+    _, (logits, value) = model.unroll(init_carry, traj.obs, traj.done)
+    logp, entropy = action_log_prob_and_entropy_packed(logits, traj.dirs,
+                                                       traj.acts)
+    return clipped_surrogate(logp, entropy, value, traj.logp, traj.value, adv,
+                             returns, cfg)
+
+
+def update_epochs_recurrent(
+    model: RecurrentActorCritic, optimizer: ppo.Optimizer, traj: Transition,
+    init_carry, adv: torch.Tensor, returns: torch.Tensor,
+    generator: torch.Generator, cfg: PPOConfig,
+    perms: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """``cfg.epochs`` x ``cfg.minibatches`` optimiser steps of
+    :func:`recurrent_ppo_loss`, minibatched over the sequence axis in
+    blocks of :func:`ppo._shuffle_block_for` sequences (one block
+    permutation per epoch, drawn from ``generator`` or given as ``perms``
+    ``[epochs, n_blocks]``). ``traj`` fields are ``[T, S(, F)]``,
+    ``init_carry`` ``[S, H]`` each. Raises if the minibatches do not
+    divide the block count. Updates ``model`` in place; returns each
+    metric's mean over the steps."""
+    t, s = traj.reward.shape
+    block = _shuffle_block_for(s, cfg)
+    n_blocks = s // block
+    if n_blocks % cfg.minibatches:
+        raise ValueError(
+            f"{s} sequences make {n_blocks} blocks of {block}, which "
+            f"{cfg.minibatches} minibatches do not divide (no block is "
+            f"dropped): choose shuffle_block or the env count to fit")
+    mb_blocks = n_blocks // cfg.minibatches
+    mb = mb_blocks * block
+
+    def blocks(x):                  # [T, S, ...] -> [T, n_blocks, block, ...]
+        return x.reshape(t, n_blocks, block, *x.shape[2:])
+
+    fields = {f.name: blocks(getattr(traj, f.name))
+              for f in dataclasses.fields(Transition)}
+    adv_blk, ret_blk = blocks(adv), blocks(returns)
+    carry_blk = tuple(c.reshape(n_blocks, block, -1) for c in init_carry)
+    history = []
+    for perm in _epoch_perms(n_blocks, cfg, generator, perms):
+        for idx in perm.reshape(cfg.minibatches, mb_blocks):
+            def take(x):
+                return x[:, idx].reshape(t, mb, *x.shape[3:])
+
+            optimizer.zero_grad()
+            loss, metrics = recurrent_ppo_loss(
+                model, Transition(**{k: take(v) for k, v in fields.items()}),
+                tuple(c[idx].reshape(mb, -1) for c in carry_blk),
+                take(adv_blk), take(ret_blk), cfg)
+            loss.backward()
+            optimizer.step()
+            history.append({k: v.detach() for k, v in metrics.items()})
+    return _mean_metrics(history)
+
+
+def train_iteration_recurrent_ppo(
+    runner: RecurrentRunnerState, env_params: EnvParams, cfg: PPOConfig,
+    collect_fn=None, update_fn=None,
+) -> tuple[RecurrentRunnerState, dict[str, torch.Tensor]]:
+    """One recurrent PPO iteration: collect (``collect_fn``, default
+    :func:`a2c.collect_recurrent_rollout`;
+    :func:`a2c.collect_recurrent_rollout_fused` for the kernel) -> GAE ->
+    the epochs of ``update_fn`` (default :func:`update_epochs_recurrent`)
+    from the carry the window started with. Returns (runner, metrics:
+    the update's mean ``loss``, ``pg_loss``, ``v_loss``, ``entropy``,
+    ``approx_kl`` and the team-0 rows' ``mean_reward``)."""
+    collect_fn = collect_fn or collect_recurrent_rollout
+    update_fn = update_fn or update_epochs_recurrent
+    init_carry = _flat_carry(runner.carry, runner.obs.shape[0])
+    runner, traj, last_value = collect_fn(runner, env_params, cfg)
+    adv, returns = compute_gae(traj, last_value, cfg)
+    metrics = update_fn(runner.model, runner.optimizer, traj, init_carry, adv,
+                        returns, runner.generator, cfg)
+    metrics["mean_reward"] = traj.reward[:, : traj.reward.shape[1] // 2].mean()
+    return runner, metrics

@@ -1,19 +1,29 @@
-"""Training CLI: self-play PPO on the batched env, in PyTorch.
+"""Training CLI: self-play PPO and A2C on the batched env, feed-forward or
+recurrent, in PyTorch.
 
-Counterpart of the PPO path of :mod:`gym_futbol_tpu.train`. Each
-iteration collects ``--rollout-steps`` steps of ``--envs`` envs, computes
-GAE and runs ``--epochs`` x ``--minibatches`` clipped-surrogate updates;
-one JSON record per logged iteration, then a ``done`` record::
+Counterpart of :mod:`gym_futbol_tpu.train`. Each iteration collects
+``--rollout-steps`` steps of ``--envs`` envs, computes GAE and updates:
+PPO runs ``--epochs`` x ``--minibatches`` clipped-surrogate updates, A2C
+one full-batch RMSProp step. One JSON record per logged iteration, then a
+``done`` record::
 
     python -m gym_futbol_tpu_torch.train --ppt 3 --envs 16384 --iters 100 \\
         --fused-collect
+    python -m gym_futbol_tpu_torch.train --recurrent --ppt 2 --envs 8192 \\
+        --hidden 128 --lstm-size 128 --fused-collect
 
-``--fused-collect`` collects with the ``fused_collect`` kernel and, unless
-``--no-fused-update``, updates with the ``fused_minibatch_grad`` kernels
-(bfloat16 operands); without it both run as plain PyTorch. Runs on the
-card unless ``--device cpu``. ``--eval-episodes N`` then plays the final
-policy against uniform random play (the fused evaluator, N envs for one
-full episode each) and prints its win, loss and draw rates.
+``--fused-collect`` collects with the ``fused_collect`` kernel (with
+``--recurrent``: ``fused_recurrent_collect``) and, for feed-forward PPO
+unless ``--no-fused-update``, updates with the ``fused_minibatch_grad``
+kernels (bfloat16 operands); otherwise both run as plain PyTorch.
+``--recurrent`` trains the LSTM actor-critic: ``--algo ppo`` the
+sequence-minibatched clipped surrogate (``recurrent_ppo``), ``--algo
+a2c`` full-batch BPTT. ``--rollout-steps`` defaults to 16 with
+``--recurrent``, else to the algorithm's own default (PPO 128, A2C 8).
+Runs on the card unless ``--device cpu``. ``--eval-episodes N`` then
+plays the final policy against uniform random play (the fused evaluator,
+or ``evaluate_recurrent`` for the LSTM policy, N envs for one full
+episode each) and prints its win, loss and draw rates.
 """
 
 from __future__ import annotations
@@ -25,22 +35,31 @@ import time
 
 def main(argv: list[str] | None = None):
     """Parse ``argv`` (the command line when None), train, print the
-    records; returns the final :class:`ppo.RunnerState`."""
+    records; returns the final runner."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--algo", choices=("ppo", "a2c"), default="ppo")
+    ap.add_argument("--recurrent", action="store_true",
+                    help="train the LSTM actor-critic: --algo a2c full-batch "
+                         "BPTT A2C, --algo ppo sequence-minibatched recurrent "
+                         "PPO")
+    ap.add_argument("--lstm-size", type=int, default=128)
     ap.add_argument("--fused-collect", action="store_true",
-                    help="collect with the fused_collect kernel; also update "
-                         "with the fused_minibatch_grad kernels unless "
-                         "--no-fused-update")
+                    help="collect with the fused_collect kernel "
+                         "(fused_recurrent_collect with --recurrent); for "
+                         "feed-forward PPO also update with the "
+                         "fused_minibatch_grad kernels unless --no-fused-update")
     ap.add_argument("--no-fused-update", action="store_true",
                     help="with --fused-collect, keep the autograd update")
     ap.add_argument("--ppt", type=int, default=2, help="players per team")
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--rollout-steps", type=int, default=128)
+    ap.add_argument("--rollout-steps", type=int, default=None,
+                    help="default: 16 with --recurrent, else the algorithm's "
+                         "(PPO 128, A2C 8)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--lr-anneal", action="store_true",
                     help="anneal the learning rate linearly from --lr to "
-                         "--lr-final over the run's --iters")
+                         "--lr-final over the run's --iters (PPO only)")
     ap.add_argument("--lr-final", type=float, default=None,
                     help="anneal target; unset means a floor of 0.1 * lr")
     ap.add_argument("--epochs", type=int, default=4)
@@ -57,34 +76,67 @@ def main(argv: list[str] | None = None):
                          "an eval_vs_random record (with --iters 0: the "
                          "untrained policy)")
     args = ap.parse_args(argv)
+    if args.algo == "a2c" and args.lr_anneal:
+        raise SystemExit("--lr-anneal is wired into the PPO optimiser only "
+                         "(A2C uses constant-rate RMSProp)")
 
     import functools
 
     import torch
 
-    from . import ppo
+    from . import a2c, ppo
+    from . import recurrent_ppo as rppo
     from .env import obs_size
     from .models.policy import ActorCritic
+    from .models.recurrent import RecurrentActorCritic
     from .types import EnvParams
 
     device = torch.device(args.device)
     env_params = EnvParams(players_per_team=args.ppt, max_steps=args.max_steps)
-    cfg = ppo.PPOConfig(
-        rollout_steps=args.rollout_steps, lr=args.lr, epochs=args.epochs,
-        minibatches=args.minibatches, lr_final=args.lr_final,
-    )
-    iteration_fn = ppo.train_iteration
-    if args.fused_collect:
-        update_fn = None if args.no_fused_update else ppo.update_epochs_fused
-        iteration_fn = functools.partial(
-            iteration_fn, collect_fn=ppo.collect_rollout_fused,
-            update_fn=update_fn)
+    rollout_steps = args.rollout_steps
+    if rollout_steps is None and args.recurrent:
+        rollout_steps = rppo.RecurrentPPOConfig.rollout_steps     # 16
+    steps = {} if rollout_steps is None else {"rollout_steps": rollout_steps}
+    total_iters = args.iters if args.lr_anneal else None
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = ActorCritic(args.ppt, obs_size(env_params), tuple(args.hidden),
-                        device=device)
-    runner = ppo.init_runner(
-        gen, model, env_params, cfg, args.envs,
-        total_iters=args.iters if args.lr_anneal else None)
+    f = obs_size(env_params)
+    if args.recurrent:
+        model = RecurrentActorCritic(args.ppt, f, tuple(args.hidden),
+                                     args.lstm_size, device=device)
+        collect_fn = (a2c.collect_recurrent_rollout_fused if args.fused_collect
+                      else a2c.collect_recurrent_rollout)
+    else:
+        model = ActorCritic(args.ppt, f, tuple(args.hidden), device=device)
+        collect_fn = (ppo.collect_rollout_fused if args.fused_collect
+                      else ppo.collect_rollout)
+    if args.algo == "a2c":
+        cfg = a2c.A2CConfig(lr=args.lr, **steps)
+        if args.recurrent:
+            runner = a2c.init_recurrent_runner(gen, model, env_params, cfg,
+                                               args.envs)
+            iteration_fn = a2c.train_iteration_recurrent
+        else:
+            runner = a2c.init_runner(gen, model, env_params, cfg, args.envs)
+            iteration_fn = a2c.train_iteration
+        iteration_fn = functools.partial(iteration_fn, collect_fn=collect_fn)
+    else:
+        kw = dict(lr=args.lr, epochs=args.epochs, minibatches=args.minibatches,
+                  lr_final=args.lr_final, **steps)
+        if args.recurrent:
+            cfg = rppo.RecurrentPPOConfig(**kw)
+            runner = rppo.init_recurrent_ppo_runner(
+                gen, model, env_params, cfg, args.envs, total_iters)
+            iteration_fn = functools.partial(rppo.train_iteration_recurrent_ppo,
+                                             collect_fn=collect_fn)
+        else:
+            cfg = ppo.PPOConfig(**kw)
+            runner = ppo.init_runner(gen, model, env_params, cfg, args.envs,
+                                     total_iters)
+            update_fn = (ppo.update_epochs_fused
+                         if args.fused_collect and not args.no_fused_update
+                         else None)
+            iteration_fn = functools.partial(
+                ppo.train_iteration, collect_fn=collect_fn, update_fn=update_fn)
 
     steps_per_iter = args.envs * cfg.rollout_steps
     t_start = time.perf_counter()
@@ -101,13 +153,22 @@ def main(argv: list[str] | None = None):
             }), flush=True)
     total = time.perf_counter() - t_start
     if args.eval_episodes:
-        from .evaluate import evaluate_fused, uniform_random_weights_like
+        from .evaluate import (
+            evaluate_fused,
+            evaluate_recurrent,
+            uniform_random_weights_like,
+        )
         from .ops.fused_collect import actor_critic_policy_weights
 
-        w = actor_critic_policy_weights(runner.model)
-        res = evaluate_fused(env_params, w, uniform_random_weights_like(w),
-                             n_envs=args.eval_episodes,
-                             n_steps=env_params.max_steps, seed=args.seed)
+        if args.recurrent:
+            res = evaluate_recurrent(env_params, runner.model,
+                                     n_envs=args.eval_episodes,
+                                     n_steps=env_params.max_steps, seed=args.seed)
+        else:
+            w = actor_critic_policy_weights(runner.model)
+            res = evaluate_fused(env_params, w, uniform_random_weights_like(w),
+                                 n_envs=args.eval_episodes,
+                                 n_steps=env_params.max_steps, seed=args.seed)
         print(json.dumps({"eval_vs_random": {
             "episodes": args.eval_episodes, "win": res["win_rate_a"],
             "loss": res["win_rate_b"], "draw": res["draw_rate"],

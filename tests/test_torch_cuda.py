@@ -15,6 +15,10 @@ custom params and 2v2 with the evaluation's (128, 128) MLPs: integers
 and sampled actions exact, floats 1e-5. The update kernels at 2v2
 (64, 64) in both modes (per leaf rel-L2, bounds with their reasons at
 the test) and one train_iteration on the collect and update kernels.
+The recurrent collect in table and Philox modes from non-zero carries
+(3v3 ragged, custom, 2v2 at H = 128): integers and sampled actions
+exact, floats and carries 1e-5, the input carries unchanged; one
+recurrent PPO iteration on it.
 """
 
 import importlib
@@ -288,5 +292,98 @@ def test_train_iteration_on_kernels(cuda):
     assert ops.LAUNCHES["fused_collect"] == before["fused_collect"] + 1
     assert (ops.LAUNCHES["fused_minibatch_grad"]
             == before["fused_minibatch_grad"] + cfg.epochs * cfg.minibatches)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(not torch.equal(a, b) for a, b in zip(first, model.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# The recurrent collect (fused_recurrent_collect) and its iteration
+# ---------------------------------------------------------------------------
+
+tfrc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_recurrent")
+
+
+def _recurrent_case(cuda, params, hidden, lstm, n_envs, seed=4):
+    """A recurrent actor-critic's flat weights, a reset batch, non-zero
+    carries [2, H, B] and a uniforms table on the card."""
+    from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    state, _ = vector.reset_batch(gen, params, n_envs, device=cuda)
+    sf, si = ops.pack_state(state, params)
+    model = RecurrentActorCritic(params.players_per_team, 4 * params.n_bodies + 2,
+                                 hidden, lstm, generator=gen, device=cuda)
+    cc, hh = (torch.randn(2, lstm, n_envs, generator=gen, device=cuda) * 0.5
+              for _ in range(2))
+    u = torch.rand((T, tfr.n_draws_per_step(params), n_envs), generator=gen,
+                   device=cuda)
+    return sf, si, tfrc.flatten_recurrent_actor_critic(model), cc, hh, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params,hidden,lstm,n_envs", [
+    (EnvParams(players_per_team=3, max_steps=6), (64,), 32, 1000),
+    (CUSTOM, (32, 16), 16, B),
+    (EnvParams(players_per_team=2, max_steps=5), (128,), 128, B),
+], ids=["3v3-ragged", "custom", "2v2-128"])
+def test_recurrent_kernel_matches_plain(cuda, params, hidden, lstm, n_envs):
+    """Table and Philox modes from non-zero carries, episodes ending in
+    the window: integers and sampled actions exact, floats (the carries
+    among them) within 1e-5; the input carries left unchanged."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sf, si, w, cc, hh, u = _recurrent_case(cuda, params, hidden, lstm, n_envs)
+    c0, h0 = cc.clone(), hh.clone()
+    before = ops.LAUNCHES["fused_recurrent_collect"]
+    cases = [
+        (ops.fused_recurrent_collect(sf, si, w, cc, hh, 0, params, T, uniforms=u),
+         tfrc.fused_recurrent_collect_reference(sf, si, w, cc, hh, params,
+                                                uniforms=u)),
+        (ops.fused_recurrent_collect(sf, si, w, cc, hh, 43, params, T),
+         tfrc.fused_recurrent_collect_reference(sf, si, w, cc, hh, params, T,
+                                                seed=43)),
+    ]
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_recurrent_collect"] == before + 2
+    for got, want in cases:
+        _assert_policy_outputs(got, want)
+    assert torch.equal(cc, c0) and torch.equal(hh, h0)
+    assert cases[0][0][8].any()                          # episode ends
+    assert (cases[0][0][2][:, 4 * params.n_bodies + 2:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_recurrent_kernel_rejects_bad_inputs(cuda):
+    params = EnvParams(players_per_team=2)
+    sf, si, w, cc, hh, _ = _recurrent_case(cuda, params, (16,), 8, 64)
+    with pytest.raises(ValueError, match="contiguous"):   # strided carries
+        ops.fused_recurrent_collect(sf, si, w, cc.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), hh, 0, params, 2)
+    _, _, w6, cc6, hh6, _ = _recurrent_case(cuda, params, (16,), 6, 64)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.fused_recurrent_collect(sf, si, w6, cc6, hh6, 0, params, 2)
+    with pytest.raises(ValueError):                      # carries on the host
+        ops.fused_recurrent_collect(sf, si, w, cc.cpu(), hh, 0, params, 2)
+
+
+@pytest.mark.cuda
+def test_recurrent_train_iteration_on_kernel(cuda):
+    """One recurrent PPO iteration at 2v2, 256 envs, T=8, hidden (32,),
+    H=32 on the collect kernel: one launch, finite metrics, every
+    parameter moved."""
+    from gym_futbol_tpu_torch import a2c, obs_size
+    from gym_futbol_tpu_torch import recurrent_ppo as rppo
+    from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic
+
+    params = EnvParams(players_per_team=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = RecurrentActorCritic(2, obs_size(params), (32,), 32, device=cuda)
+    cfg = rppo.RecurrentPPOConfig(rollout_steps=8)
+    runner = rppo.init_recurrent_ppo_runner(gen, model, params, cfg, B)
+    first = [p.detach().clone() for p in model.parameters()]
+    before = ops.LAUNCHES["fused_recurrent_collect"]
+    runner, metrics = rppo.train_iteration_recurrent_ppo(
+        runner, params, cfg, collect_fn=a2c.collect_recurrent_rollout_fused)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_recurrent_collect"] == before + 1
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(first, model.parameters()))

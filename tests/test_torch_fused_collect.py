@@ -433,7 +433,8 @@ def test_cpu_path_never_builds(monkeypatch):
                                          device="cpu"))
     assert ops.LAUNCHES == {"fused_rollout": 0, "fused_rollout_replay": 0,
                             "fused_collect": 0, "fused_selfplay_rollout": 0,
-                            "fused_minibatch_grad": 0}
+                            "fused_minibatch_grad": 0,
+                            "fused_recurrent_collect": 0}
 
 
 def test_philox_sampling_statistics():

@@ -184,8 +184,9 @@ def test_mlp_weights_from_numpy():
 def test_port_imports_no_jax():
     """The port imports torch and never JAX, flax, optax or the JAX
     package: with all four made unimportable, every module of the package
-    (the update's ppo, train and ops.fused_update among them) still
-    imports."""
+    (ppo, train, ops.fused_update, and the recurrent learners' a2c,
+    recurrent_ppo, models.recurrent and ops.fused_recurrent among them)
+    still imports."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'flax', 'optax', 'gym_futbol_tpu'):\n"
@@ -196,7 +197,10 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'gym_futbol_tpu_torch.train', 'gym_futbol_tpu_torch.ppo',\n"
-        "        'gym_futbol_tpu_torch.ops.fused_update'} <= set(names)\n"
+        "        'gym_futbol_tpu_torch.ops.fused_update',\n"
+        "        'gym_futbol_tpu_torch.a2c', 'gym_futbol_tpu_torch.recurrent_ppo',\n"
+        "        'gym_futbol_tpu_torch.models.recurrent',\n"
+        "        'gym_futbol_tpu_torch.ops.fused_recurrent'} <= set(names)\n"
         "assert not any(k.startswith(('jax', 'flax', 'optax', 'gym_futbol_tpu.'))\n"
         "               and sys.modules[k] for k in sys.modules)\n"
     )
