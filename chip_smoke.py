@@ -15,12 +15,14 @@ port's main paths:
   envs, T=128, hidden (256, 256)) and fused evaluation at bench config 6
   (2v2, 4096 envs, T=512, two (128, 128) MLPs);
 - phases 11-13, PPO training (fused_minibatch_grad): the update kernels
-  against their plain version and against autograd on a real minibatch
-  (a collected buffer, after one iteration's updates have moved the
-  weights, so that both clips decide some samples' gradients), then
-  train_iteration at bench config 4 (fused collect, GAE, 4 epochs x 4
-  minibatches of 2^20 samples on the kernels) and once through the
-  training CLI, then the kernels' times;
+  (bf16 on the tensor cores, float32 on the CUDA-core chain) against
+  their plain version and against autograd on real minibatches (a
+  collected buffer, after one iteration's updates have moved the
+  weights, so that both clips decide some samples' gradients; 3v3, 2v2,
+  custom params and a 5v5 G = 10 head), then train_iteration at bench
+  config 4 (fused collect, GAE, 4 epochs x 4 minibatches of 2^20 samples
+  on the kernels) and once through the training CLI, then the kernels'
+  times beside the CUDA-core chain's and cuBLAS's on the same products;
 - phases 14-16, the recurrent learners (fused_recurrent_collect): the
   kernel against its plain version in table and Philox modes from
   non-zero carries (3v3, 16384 envs, hidden (128,), H=128, and other
@@ -527,12 +529,18 @@ def update_phases(dev, custom) -> dict:
         (f"config 4 3v3 {H4} block {K3_BLOCK}", p4, H4, B4, T4, K3_BLOCK, mb4),
         ("custom (32, 16)", custom, (32, 16), B3, 8, K3_BLOCK, 16),
         ("2v2 (128, 128) block 128", p6, (128, 128), 1024, 16, 128, 64),
+        ("5v5 (128, 128), G = 10", EnvParams(players_per_team=5), (128, 128),
+         1024, 16, K3_BLOCK, 8),
     )
     for n, (label, params, hidden, n_envs, n_steps, block, mb_blocks) in enumerate(
             cases):
         model, cfg, args, kw = update_minibatch(
             dev, params, hidden, n_envs, n_steps, block, mb_blocks, 10 + n)
-        tag = f"11 {label}, {mb_blocks} blocks ({mb_blocks * block} samples)"
+        routes = "/".join(fu.update_plan(
+            args[1].shape[0], hidden, args[0][-4].shape[1], mb_blocks * block,
+            mode)["route"] for mode in (bf16, f32))
+        tag = (f"11 {label}, {mb_blocks} blocks ({mb_blocks * block} samples, "
+               f"bf16/f32 on {routes})")
         got, terms = {}, {}
         for mode, tol in ((bf16, K3_BF16_REL), (f32, K3_F32_REL)):
             got[mode] = ops.fused_minibatch_grad(*args, **kw, compute_dtype=mode)
@@ -648,11 +656,22 @@ def update_phases(dev, custom) -> dict:
     check(len(records) == 3 and [r.get("step") for r in records[:2]] == [0, 1]
           and records[2].get("done") is True, "12: the CLI's records")
 
-    # 13: the kernels alone at config 4's minibatch, and the plain version
-    ms_bf16 = time_cuda(lambda i: ops.fused_minibatch_grad(
-        *k3_args, **k3_kw, compute_dtype=bf16), 5)
-    ms_f32 = time_cuda(lambda i: ops.fused_minibatch_grad(
-        *k3_args, **k3_kw, compute_dtype=f32), 3)
+    # 13: the kernels alone at config 4's minibatch: bf16 on the tensor
+    # cores, the CUDA-core chain in float32 and, for the record, in bf16
+    # (the route before the tensor-core kernels); the plain version
+    def k3(mode):
+        return lambda i: ops.fused_minibatch_grad(*k3_args, **k3_kw,
+                                                  compute_dtype=mode)
+
+    ms_bf16 = time_cuda(k3(bf16), 10)
+    ms_f32 = time_cuda(k3(f32), 3)
+    plan = fu.update_plan
+    fu.update_plan = lambda f_dim, widths, g5, m, mode: plan(f_dim, widths, g5, m, f32)
+    try:
+        ms_chain_bf16 = time_cuda(k3(bf16), 3)
+    finally:
+        fu.update_plan = plan
+    ms_bf16_again = time_cuda(k3(bf16), 10)
     plain_bf16 = time_cuda(lambda i: fu.fused_minibatch_grad_reference(
         *k3_args, **k3_kw, compute_dtype=bf16), 2)
     plain_f32 = time_cuda(lambda i: fu.fused_minibatch_grad_reference(
@@ -675,13 +694,42 @@ def update_phases(dev, custom) -> dict:
     bound_bf16 = bound(bytes_k3, 2 * f32_macs * m, 2 * bf16_macs * m)
     bound_f32 = bound(bytes_k3, 2 * (bf16_macs + f32_macs) * m)
     phase("13 kernels", f"fused_minibatch_grad, config 4 minibatch of {m} "
-          f"samples: bfloat16 {ms_bf16:.3f} ms (bound {bound_bf16[0]:.4g} ms, "
-          f"{bound_bf16[1]}), float32 {ms_f32:.3f} ms (bound {bound_f32[0]:.4g} "
-          f"ms); plain version bfloat16 {plain_bf16:.3f} ms, float32 "
-          f"{plain_f32:.3f} ms; {(bf16_macs + f32_macs)} multiply-adds per sample")
+          f"samples: bfloat16 on the tensor cores {ms_bf16:.3f} ms (again after "
+          f"the chain: {ms_bf16_again:.3f} ms; bound {bound_bf16[0]:.4g} ms, "
+          f"{bound_bf16[1]}; {2 * bf16_macs * m / ms_bf16 / 1e9:.4g} TFLOP/s of "
+          f"bf16 products), the CUDA-core chain in bfloat16 {ms_chain_bf16:.3f} "
+          f"ms, float32 {ms_f32:.3f} ms (bound {bound_f32[0]:.4g} ms); plain "
+          f"version bfloat16 {plain_bf16:.3f} ms, float32 {plain_f32:.3f} ms; "
+          f"{(bf16_macs + f32_macs)} multiply-adds per sample")
+    # yardstick, never called by the port: cuBLAS on the same eight bf16
+    # layer products (forward: layer 1, layer 2, logits; backward: dh and
+    # dW of the logits head and of layer 2, dW of layer 1)
+    hb = [torch.randn(d, m, device=dev, dtype=bf16) for d in (obs_fm.shape[0], *H4)]
+    dl = torch.randn(g5, m, device=dev, dtype=bf16)
+    wb = [torch.randn(a, b, device=dev, dtype=bf16) for a, b in
+          ((obs_fm.shape[0], H4[0]), (H4[0], H4[1]), (H4[1], g5))]
+
+    def products(i):
+        x, h1, h2 = hb
+        (w1, w2, wl) = wb
+        torch.matmul(w1.T, x)
+        torch.matmul(w2.T, h1)
+        torch.matmul(wl.T, h2)
+        torch.matmul(wl, dl)
+        torch.matmul(h2, dl.T)
+        torch.matmul(h1, h2.T)
+        torch.matmul(w2, h2)
+        torch.matmul(x, h1.T)
+
+    products(0)
+    ms_cublas = time_cuda(products, 20)
+    del hb, dl
+    phase("13 kernels", f"yardstick: cuBLAS (torch.matmul, bf16) on the same "
+          f"eight layer products at this minibatch: {ms_cublas:.3f} ms "
+          f"({2 * bf16_macs * m / ms_cublas / 1e9:.4g} TFLOP/s), 20 iterations")
     for line in ptxas_summary(_build_log()):
-        if line.startswith(("rows_gemm", "outer_gemm", "rowdot", "reduce_",
-                            "head_loss")):
+        if line.startswith(("tc_forward", "tc_backward", "round_obs", "rows_gemm",
+                            "outer_gemm", "rowdot", "reduce_", "head_loss")):
             phase("13 kernels", line)
     # where the time goes: one launch, then one main-path iteration
     box = {"runner": runner}

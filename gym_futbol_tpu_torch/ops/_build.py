@@ -191,5 +191,19 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_update.restype = i
+    lib.futbol_fused_update_tc.argtypes = [
+        p, p, p,              # bf16 W1, W2, Wl, padded
+        p, p, p, p, p,        # float32 b1, b2, bl, wv (padded), bv
+        i, i, i, i, i,        # F_pad, F1 padded, H1 padded, H2 padded or 0, G
+        p, ctypes.c_longlong,  # obs [F_pad, N], N
+        p, i, i,              # block indices, mb_blocks, block
+        p, p, p, p, p, p,     # dirs, acts, logp, value, ret, adv_n
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        p, p,                 # dz, rounded obs (bf16)
+        p, p, i,              # forward / backward partials, chunk
+        p, p,                 # forward / backward sums
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_fused_update_tc.restype = i
     _LIB = lib
     return lib

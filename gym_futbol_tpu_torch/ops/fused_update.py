@@ -15,8 +15,11 @@ value loss and the entropy bonus, and the hand-written backward pass:
 
 ``adv_n`` arrives gathered and normalised per minibatch; the 1/M loss
 scale is inside the gradients and the four metrics are sums. On a CUDA
-tensor :func:`fused_minibatch_grad` runs the chain of kernels in
-``csrc/fused_update.cu``; on a CPU tensor it runs the plain version
+tensor :func:`fused_minibatch_grad` runs the kernels of
+``csrc/fused_update.cu`` on the route :func:`update_plan` names: in
+bfloat16 the tensor-core kernels (torsos of one or two layers up to
+:data:`TC_MAX_WIDTH` wide), otherwise the chain of CUDA-core kernels; on
+a CPU tensor it runs the plain version
 :func:`fused_minibatch_grad_reference`.
 
 Precision, as the JAX kernel rounds: with ``compute_dtype`` bfloat16,
@@ -51,9 +54,17 @@ CHUNK = 4096
 # Samples per block of the kernels' loss pass: one metric partial each.
 _LOSS_THREADS = 256
 _GROUPS = (2, 4, 6, 8, 10)   # action groups the loss kernel is built for
-# Shared memory a block may use (H100): the loss kernel keeps both heads'
-# weights there, [H, G*5 + 1] float32.
+# Shared memory a block may use (H100): the CUDA-core loss kernel keeps
+# both heads' weights there, [H, G*5 + 1] float32; the tensor-core forward
+# every weight in bf16.
 _SMEM_BYTES = 232448
+# The tensor-core kernels: samples per tile (and the multiple the torso
+# widths are padded to), first-layer units per backward block, the widest
+# torso layer they take, warps per forward block.
+TC_TILE = 64
+TC_SLAB = 64
+TC_MAX_WIDTH = 256
+TC_FWD_WARPS = 16
 
 
 def _check(weights, obs_fm, dirs_blk, acts_blk, logp_blk, value_blk, ret_blk,
@@ -258,24 +269,172 @@ def fused_minibatch_grad_reference(
 # ---------------------------------------------------------------------------
 
 
-def _workspace(dev, dims: list, g5: int, m: int) -> dict:
-    """The kernels' buffers for one call: each torso layer's activations
-    [width, M], dz, dlogits, dvalue and the partial sums. They come from
-    PyTorch's caching allocator, which hands the same blocks back on the
-    next call of the same shape (stream-ordered, so a later call's
-    buffers never overlap a running launch)."""
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def update_plan(f_dim: int, widths, g5: int, m: int,
+                compute_dtype=torch.bfloat16) -> dict:
+    """How :func:`fused_minibatch_grad` runs a minibatch of ``m`` samples
+    with ``f_dim`` obs rows, torso ``widths`` and a ``g5``-wide logits
+    head, without a card: the route and, for the tensor cores, the padded
+    sizes, shared memory, grids and buffer sizes of ``csrc/fused_update.cu``
+    (``fwd_smem``, ``bwd_smem``, ``FwdLayout``, ``BwdLayout``).
+
+    bfloat16 with one or two torso layers of at most :data:`TC_MAX_WIDTH`
+    units whose forward block fits in shared memory takes the tensor-core
+    kernels ("tensor_cores"); float32, and bfloat16 beyond those limits,
+    the chain of CUDA-core kernels ("cuda_cores"). Raises ValueError for a
+    minibatch neither takes."""
+    widths = [int(h) for h in widths]
+    g = g5 // N_CHOICES
+    if g5 % N_CHOICES or g not in _GROUPS:
+        raise ValueError(f"the loss kernels take {_GROUPS} action groups")
+    if not widths or m % _LANE:
+        raise ValueError(f"a torso of >= 1 layers and a multiple of {_LANE} "
+                         "samples")
     n_chunks = -(-m // CHUNK)
-    # partial sums: per chunk, each layer's [in, out] weight gradient or
-    # a row sum; per loss block, 4 metrics
+    plan = dict(route="cuda_cores", n_chunks=n_chunks)
+    f1p = _round_up(f_dim, 16)
+    padded = [_round_up(h, TC_TILE) for h in widths]
+    g5p = _round_up(g5, 16)
+    hp = padded[-1]
+    two = len(widths) == 2
+    h1p, h2p = padded[0], padded[1] if two else 0
+    halves = (f1p * h1p + (h1p * h2p if two else 0) + hp * (g5p + 8)
+              + f1p * TC_TILE + max(h1p, h2p) * TC_TILE + g5p * TC_TILE)
+    floats = (g5p * TC_TILE + h1p + h2p + g5p + hp + TC_FWD_WARPS * TC_TILE
+              + 8 * TC_TILE + 2 * g * TC_TILE)
+    smem_fwd = 2 * halves + 4 * floats
+    if (compute_dtype == torch.bfloat16 and len(widths) <= 2
+            and max(widths) <= TC_MAX_WIDTH and f1p <= 64
+            and smem_fwd <= _SMEM_BYTES):
+        e_fwd = hp * g5p + g5p + 2 * hp + 8
+        e_bwd = f1p * h1p + (h1p + h1p * h2p if two else 0)
+        # two (obs, dz) buffers; two-layer torsos: W2's and W1's slab, h1
+        # and dz1 tiles
+        smem_bwd = 2 * (2 * f1p * TC_TILE + (
+            2 * h2p * TC_TILE + TC_SLAB * h2p + f1p * TC_SLAB
+            + 2 * TC_SLAB * TC_TILE if two else 2 * TC_SLAB * TC_TILE)
+        ) + 4 * (TC_SLAB + 8 * 16)
+        plan.update(
+            route="tensor_cores", f1p=f1p, h1p=h1p, h2p=h2p, hp=hp, g5p=g5p,
+            smem_fwd=smem_fwd, smem_bwd=smem_bwd,
+            fwd_blocks=n_chunks, bwd_blocks=n_chunks * (h1p // TC_SLAB),
+            tiles_per_chunk=CHUNK // TC_TILE, e_fwd=e_fwd, e_bwd=e_bwd,
+            partial_floats=n_chunks * (e_fwd + e_bwd), dz_shape=(hp, m),
+            xb_shape=(f1p, m),
+            # offsets in the forward and backward sums
+            fwd_offsets=dict(dwl=0, dbl=hp * g5p, dwv=hp * g5p + g5p,
+                             dbv=hp * g5p + g5p + hp,
+                             db=hp * g5p + g5p + hp + 4,
+                             met=hp * g5p + g5p + 2 * hp + 4),
+            bwd_offsets=dict(dw1=0, db1=f1p * h1p, dw2=f1p * h1p + h1p))
+        return plan
+    if widths[-1] * (g5 + 1) * 4 > _SMEM_BYTES:
+        raise ValueError(f"the last torso layer ({widths[-1]} wide) and the "
+                         f"heads do not fit the loss kernel's shared memory")
+    dims = [f_dim, *widths]
     part = max([dims[i] * dims[i + 1] for i in range(len(dims) - 1)]
                + [dims[-1] * g5, dims[-1]])
-    size = max(n_chunks * part, -(-m // _LOSS_THREADS) * 4)
+    plan.update(partial_floats=max(n_chunks * part,
+                                   -(-m // _LOSS_THREADS) * 4))
+    return plan
 
+
+def padded_weights(weights, n_torso: int, plan: dict) -> dict:
+    """The weights as the tensor-core kernels take them, float32 and
+    zero-padded to ``plan``'s sizes: ``w1`` [f1p, h1p], ``b1`` [h1p],
+    ``w2`` [h1p, h2p], ``b2`` [h2p] (two-layer torsos), ``wl`` [hp, g5p],
+    ``bl`` [g5p], ``wv`` [hp], ``bv`` [1]. Exact: a pad unit's
+    activation is tanh(0) = 0 and its outgoing weights are zero, so its
+    dz is zero; a pad logit row has zero weights, so its dlogits row is
+    never read (the kernels write zero there)."""
+    f1p, h1p, h2p, hp, g5p = (plan[k] for k in ("f1p", "h1p", "h2p", "hp", "g5p"))
+
+    def pad(t, *shape):
+        out = t.new_zeros(shape)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        return out
+
+    out = dict(w1=pad(weights[0], f1p, h1p), b1=pad(weights[1][:, 0], h1p))
+    if n_torso == 2:
+        out.update(w2=pad(weights[2], h1p, h2p), b2=pad(weights[3][:, 0], h2p))
+    wl, bl, wv, bv = weights[-4:]
+    out.update(wl=pad(wl, hp, g5p), bl=pad(bl[:, 0], g5p), wv=pad(wv[:, 0], hp),
+               bv=bv.reshape(1))
+    return out
+
+
+def _run_tensor_cores(weights, obs_fm, rows, adv_n, idx, n_torso, block,
+                      coefs, plan):
+    """The tensor-core kernels on one minibatch: pads and rounds the
+    weights, launches ``futbol_fused_update_tc`` and cuts the padded sums
+    back to the weights' shapes. Returns (grads, metrics [4])."""
+    from . import _build
+
+    if any(t.data_ptr() % 16 for t in (obs_fm, adv_n, *rows)):
+        raise ValueError("the tensor-core kernels copy the obs and the per-sample "
+                         "rows 16 bytes at a time: each must start on a 16-byte "
+                         "boundary")
+    dev = obs_fm.device
+    f32 = torch.float32
+    f1p, h1p, h2p, hp, g5p = (plan[k] for k in ("f1p", "h1p", "h2p", "hp", "g5p"))
+    pw = padded_weights(weights, n_torso, plan)
+    w1, wl_p = pw["w1"].to(torch.bfloat16), pw["wl"].to(torch.bfloat16)
+    w2 = pw["w2"].to(torch.bfloat16) if n_torso == 2 else w1
+    b1, b2 = pw["b1"], pw.get("b2", pw["b1"])
+    bl_p, wv_p, bv = pw["bl"], pw["wv"], pw["bv"]
+    wl = weights[-4]
+    dz = torch.empty(plan["dz_shape"], dtype=torch.bfloat16, device=dev)
+    xb = torch.empty(plan["xb_shape"], dtype=torch.bfloat16, device=dev)
+    n_chunks, e_fwd, e_bwd = plan["n_chunks"], plan["e_fwd"], plan["e_bwd"]
+    part_fwd = torch.empty(n_chunks * e_fwd, dtype=f32, device=dev)
+    part_bwd = torch.empty(n_chunks * e_bwd, dtype=f32, device=dev)
+    out_fwd = torch.empty(e_fwd, dtype=f32, device=dev)
+    out_bwd = torch.empty(e_bwd, dtype=f32, device=dev)
+    lib = _build.load()
+    err = lib.futbol_fused_update_tc(
+        w1.data_ptr(), w2.data_ptr(), wl_p.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), bl_p.data_ptr(), wv_p.data_ptr(), bv.data_ptr(),
+        obs_fm.shape[0], f1p, h1p, h2p, wl.shape[1] // N_CHOICES,
+        obs_fm.data_ptr(), obs_fm.shape[1], idx.data_ptr(), idx.shape[0], block,
+        *(r.data_ptr() for r in rows), adv_n.data_ptr(), *coefs,
+        dz.data_ptr(), xb.data_ptr(), part_fwd.data_ptr(), part_bwd.data_ptr(),
+        CHUNK, out_fwd.data_ptr(), out_bwd.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on_error(err, "fused_minibatch_grad")
+    fo, bo = plan["fwd_offsets"], plan["bwd_offsets"]
+    widths = [weights[2 * li].shape[1] for li in range(n_torso)]
+    h, g5 = widths[-1], wl.shape[1]
+    grads = [None] * len(weights)
+    grads[0] = out_bwd[:f1p * h1p].view(f1p, h1p)[:weights[0].shape[0],
+                                                  :widths[0]]
+    if n_torso == 2:
+        grads[1] = out_bwd[bo["db1"]:bo["db1"] + widths[0]].view(-1, 1)
+        grads[2] = out_bwd[bo["dw2"]:].view(h1p, h2p)[:widths[0], :widths[1]]
+    grads[2 * n_torso - 1] = out_fwd[fo["db"]:fo["db"] + h].view(-1, 1)
+    grads[2 * n_torso] = out_fwd[:hp * g5p].view(hp, g5p)[:h, :g5]
+    grads[2 * n_torso + 1] = out_fwd[fo["dbl"]:fo["dbl"] + g5].view(-1, 1)
+    grads[2 * n_torso + 2] = out_fwd[fo["dwv"]:fo["dwv"] + h].view(-1, 1)
+    grads[2 * n_torso + 3] = out_fwd[fo["dbv"]:fo["dbv"] + 1].view(1, 1)
+    return (tuple(g.contiguous() for g in grads),
+            out_fwd[fo["met"]:fo["met"] + 4])
+
+
+def _workspace(dev, dims: list, g5: int, m: int, partial_floats: int) -> dict:
+    """The CUDA-core chain's buffers for one call: each torso layer's
+    activations [width, M], dz, dlogits, dvalue and the partial sums (per
+    chunk, each layer's [in, out] weight gradient or a row sum; per loss
+    block, 4 metrics). They come from PyTorch's caching allocator, which
+    hands the same blocks back on the next call of the same shape
+    (stream-ordered, so a later call's buffers never overlap a running
+    launch); so do the tensor-core kernels' buffers."""
     def buf(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     return dict(acts=[buf(h, m) for h in dims[1:]], dz=buf(dims[-1], m),
-                dlogits=buf(g5, m), dvalue=buf(m), partial=buf(size))
+                dlogits=buf(g5, m), dvalue=buf(m), partial=buf(partial_floats))
 
 
 def _ptrs(tensors):
@@ -320,28 +479,30 @@ def fused_minibatch_grad(
     f_dim, n = obs_fm.shape
     f_w = weights[0].shape[0]
     g5 = weights[2 * n_torso].shape[1]
-    if g5 // N_CHOICES not in _GROUPS:
-        raise ValueError(f"the loss kernel takes {_GROUPS} action groups")
-    w = _pad_first_layer(weights, f_dim)
-    dims = [f_dim] + [w[2 * li].shape[1] for li in range(n_torso)]
-    if dims[-1] * (g5 + 1) * 4 > _SMEM_BYTES:
-        raise ValueError(f"the last torso layer ({dims[-1]} wide) and the heads "
-                         f"do not fit the loss kernel's shared memory")
+    widths = [weights[2 * li].shape[1] for li in range(n_torso)]
     m = idx.shape[0] * block
+    plan = update_plan(f_dim, widths, g5, m, compute_dtype)
+    inv_m = 1.0 / float(m)
+    coefs = (clip_eps, inv_m, vf_coef * inv_m, ent_coef * inv_m)
+    rows = (dirs_blk, acts_blk, logp_blk, value_blk, ret_blk)
+    if plan["route"] == "tensor_cores":
+        grads, metrics = _run_tensor_cores(weights, obs_fm, rows, adv_n, idx,
+                                           n_torso, block, coefs, plan)
+        LAUNCHES["fused_minibatch_grad"] += 1
+        return grads, dict(zip(METRICS, metrics.unbind()))
+    w = _pad_first_layer(weights, f_dim)
+    dims = [f_dim, *widths]
     dev = obs_fm.device
-    ws = _workspace(dev, dims, g5, m)
+    ws = _workspace(dev, dims, g5, m, plan["partial_floats"])
     grads = [torch.empty_like(t) for t in weights]
     metrics = torch.empty(4, dtype=torch.float32, device=dev)
-    inv_m = 1.0 / float(m)
     from . import _build
 
     lib = _build.load()
     err = lib.futbol_fused_update(
         _ptrs(w), _ptrs(grads), (ctypes.c_int * len(dims))(*dims), n_torso,
         f_w, g5, obs_fm.data_ptr(), n, idx.data_ptr(), idx.shape[0], block,
-        dirs_blk.data_ptr(), acts_blk.data_ptr(), logp_blk.data_ptr(),
-        value_blk.data_ptr(), ret_blk.data_ptr(), adv_n.data_ptr(),
-        clip_eps, inv_m, vf_coef * inv_m, ent_coef * inv_m,
+        *(r.data_ptr() for r in rows), adv_n.data_ptr(), *coefs,
         int(compute_dtype == torch.bfloat16), _ptrs(ws["acts"]),
         ws["dz"].data_ptr(), ws["dlogits"].data_ptr(), ws["dvalue"].data_ptr(),
         ws["partial"].data_ptr(), ws["partial"].numel(), CHUNK,

@@ -225,18 +225,31 @@ def _update_case(cuda, ppt, hidden, n_blocks, block, idx, seed=5):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ppt,hidden,n_blocks,block,idx", [
+    (2, (64, 64), 8, 128, [5, 0, 3]),
+    (5, (128, 128), 4, 1024, [3, 1]),        # G = 10: a 64-wide padded head
+    (5, (48, 40), 6, 128, [4, 1, 5]),        # widths and G*5 not tile multiples
+    (3, (100,), 4, 256, [2, 0, 3]),          # one layer, padded to 128
+    (2, (32, 16), 40, 128, list(range(39, 0, -1))),   # 39 blocks: chunks of 4096
+], ids=["2v2-64-64", "5v5-128-128", "5v5-48-40", "3v3-100", "2v2-32-16"])
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-3)],
                          ids=["float32", "bfloat16"])
-def test_update_kernels_match_plain(cuda, dtype, rel):
-    """2v2, hidden (64, 64), blocks of 128, a permuted minibatch of 3 of
-    8 blocks: per leaf rel-L2 within 1e-4 (float32: sums in another
-    order) or 1e-3 (bfloat16: the same rounding points, so the order of
-    the sums and the rare one-ulp flip of a rounded operand it causes);
+def test_update_kernels_match_plain(cuda, dtype, rel, ppt, hidden, n_blocks,
+                                    block, idx):
+    """Permuted minibatches at 2v2 (64, 64), 5v5 (G = 10) and widths that
+    are not tile multiples: per leaf rel-L2 within 1e-4 (float32, the
+    CUDA-core chain: sums in another order) or 1e-3 (bfloat16, the
+    tensor-core kernels: the same rounding points, so the order of the
+    sums and the rare one-ulp flip of a rounded operand it causes);
     metric sums within 1e-4 of the larger of the sum and the sample
     count; two calls identical (no atomics)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    args, kw = _update_case(cuda, 2, (64, 64), 8, 128, [5, 0, 3])
+    args, kw = _update_case(cuda, ppt, hidden, n_blocks, block, idx)
+    m = len(idx) * block
+    route = tfu.update_plan(args[1].shape[0], hidden, args[0][-4].shape[1], m,
+                            dtype)["route"]
+    assert route == ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
     before = ops.LAUNCHES["fused_minibatch_grad"]
     got = ops.fused_minibatch_grad(*args, **kw, compute_dtype=dtype)
     again = ops.fused_minibatch_grad(*args, **kw, compute_dtype=dtype)
