@@ -8,12 +8,15 @@ port's main paths:
   fused_rollout_replay): 4096 2v2 envs for 512 steps (bench config 3),
   a replay of given actions, and one 5v5 rollout of 65536 envs;
 - phases 7-10, the self-play policy path (fused_collect,
-  fused_selfplay_rollout): table- and Philox-mode parity at both main
-  paths' shapes and on other ones, a teacher-forced check of
-  the collect against the actor-critic module, Philox sampling
-  statistics, then PPO collection + GAE at bench config 4 (3v3, 16384
-  envs, T=128, hidden (256, 256)) and fused evaluation at bench config 6
-  (2v2, 4096 envs, T=512, two (128, 128) MLPs);
+  fused_selfplay_rollout) in both routes, bfloat16 on the tensor cores
+  (the main path's) and float32 on the CUDA cores (exact): table- and
+  Philox-mode parity at both main paths' shapes and on other ones (bf16:
+  within a tolerance, every differing action a counted near tie), a
+  teacher-forced check of the collect against the actor-critic module,
+  Philox sampling statistics, then PPO collection + GAE at bench config
+  4 (3v3, 16384 envs, T=128, hidden (256, 256)) and fused evaluation at
+  bench config 6 (2v2, 4096 envs, T=512, two (128, 128) MLPs), both
+  routes' times, the layout plan and a cuBLAS yardstick;
 - phases 11-13, PPO training (fused_minibatch_grad): the update kernels
   (bf16 on the tensor cores, float32 on the CUDA-core chain) against
   their plain version and against autograd on real minibatches (a
@@ -63,7 +66,7 @@ T_PARITY = 16
 T_STATS = 64
 T_FORCED = 32
 SOURCE = "gym_futbol_tpu_torch/csrc/fused_rollout.cu"
-POLICY_SOURCE = "gym_futbol_tpu_torch/csrc/fused_policy.cu"
+POLICY_SOURCE = "gym_futbol_tpu_torch/csrc/fused_policy_tc.cu"
 UPDATE_SOURCE = "gym_futbol_tpu_torch/csrc/fused_update.cu"
 RECURRENT_SOURCE = "gym_futbol_tpu_torch/csrc/fused_recurrent.cu"
 REPLACES = {
@@ -86,6 +89,21 @@ RTOL, ATOL, REW_ATOL = 1e-4, 1e-3, 1e-4
 # actor-critic module (cuBLAS f32 with TF32 off, another summation
 # order): 1e-4; the kernel's mirrored view against mirror_obs: 1e-6.
 POLICY_ATOL, FORCED_ATOL, MIRROR_ATOL = 1e-4, 1e-4, 1e-6
+# The bfloat16 route (tensor cores) against the plain bfloat16 version
+# on the same uniforms: the same rounding points, the f32 sums in another
+# order. Where that order puts an activation's f32 value on the other
+# side of a bf16 rounding boundary, the rounded activation moves by one
+# bf16 ulp (2^-8 relative), and the logits and values after it by up to
+# a few 1e-3 (<= 2.3e-3 measured over T = 3-8 on the card): logp, value
+# and last_value within 1e-2 on the envs whose actions all agreed; the
+# env's own outputs (obs, rewards, states) within POLICY_ATOL there, and
+# integers exact. A sampled action may differ only where the uniform
+# lies within TIE_FACTOR x the measured log-prob error of a boundary of
+# the plain version's CDF (a near tie); such envs leave the comparison
+# from that step on and are counted. The teacher-forced bf16 check
+# against the module's forward with bf16-rounded operands (cuBLAS f32
+# sums, another order again): the same 1e-2.
+POLICY_BF16_ATOL, FORCED_BF16_ATOL, TIE_FACTOR = 1e-2, 1e-2, 2.0
 # The update kernels (fused_minibatch_grad) against their plain version
 # on the same inputs, per gradient leaf rel-L2: float32 sums in another
 # order only; bfloat16 the same rounding points, so only the summation
@@ -168,6 +186,110 @@ def compare_policy(kernel_out, plain_out, label: str, actions=()) -> float:
     return err
 
 
+def group_indices(dirs, acts, n_groups):
+    """Packed [T, 2, B] dirs / acts -> sampled indices [T, 2, G, B]."""
+    import torch
+
+    return torch.stack([((dirs, acts)[g % 2] >> (3 * (g // 2))) & 7
+                        for g in range(n_groups)], 2)
+
+
+def recording(module, name: str, calls: list):
+    """``module.name`` (a sampler the plain versions call once per view
+    and step with (logit rows [G*5, B], n_groups, uniforms [G, B]))
+    wrapped to append each call's logits and uniforms to ``calls``;
+    returns the original."""
+    orig = getattr(module, name)
+
+    def wrapped(logit_rows, n_groups, uniforms):
+        calls.append((logit_rows.clone(), uniforms[:n_groups].clone()))
+        return orig(logit_rows, n_groups, uniforms)
+
+    setattr(module, name, wrapped)
+    return orig
+
+
+def compare_policy_bf16(kernel_out, plain_out, calls, label: str, actions,
+                        floats, env_outs, tie_eps=None):
+    """The bf16 route against the plain bf16 version on the same draws.
+    ``calls``: the plain version's (logits, uniforms) per step and view
+    (``recording``); ``actions``: positions of the packed dirs and acts
+    [T, 2, B]; ``floats``: positions of the model's float outputs (logp,
+    value, last_value; last axis B), within POLICY_BF16_ATOL; ``env_outs``:
+    positions of the env's outputs (states, obs, rewards, goals, dones),
+    within POLICY_ATOL, integers exact. Both on the envs whose actions
+    all agreed. Each env's first differing action must be a near tie: its
+    uniform within TIE_FACTOR x ``tie_eps`` (default: the logp error
+    measured here) of a boundary of the plain version's CDF. Returns (the
+    largest float error, the logp error measured, the counts)."""
+    import torch
+
+    kd, ka = (kernel_out[i] for i in actions)
+    t, _, b = kd.shape
+    n_groups = calls[0][0].shape[0] // 5
+    idx_k = group_indices(kd, ka, n_groups)
+    idx_p = group_indices(plain_out[actions[0]], plain_out[actions[1]], n_groups)
+    differ = idx_k != idx_p                                  # [T, 2, G, B]
+    bad_step = differ.flatten(1, 2).any(1)                   # [T, B]
+    bad_env = bad_step.any(0)
+    first = torch.where(bad_env, bad_step.int().argmax(0), t)  # T: none
+    steps = torch.arange(t, device=kd.device)[:, None]
+    logits = torch.stack([c[0] for c in calls]).reshape(t, 2, n_groups, 5, b)
+    u = torch.stack([c[1] for c in calls]).reshape(t, 2, n_groups, b)
+    cdf = torch.softmax(logits.double(), 3).cumsum(3)[:, :, :, :4]
+    margin = (u.double()[:, :, :, None] - cdf).abs().amin(3)   # [T, 2, G, B]
+    good = ~bad_env
+    err, logp_err = 0.0, 0.0
+    for i in floats:
+        k, p = kernel_out[i][..., good], plain_out[i][..., good]
+        check(bool(torch.isfinite(kernel_out[i]).all()), f"{label}: non-finite output")
+        e = (k - p).abs().max().item() if k.numel() else 0.0
+        err = max(err, e)
+        if i == floats[0]:
+            logp_err = e
+    env_err, ints_equal = 0.0, True
+    for i in env_outs:
+        k, p = kernel_out[i][..., good], plain_out[i][..., good]
+        if k.dtype.is_floating_point:
+            env_err = max(env_err, (k - p).abs().max().item() if k.numel() else 0.0)
+        else:
+            ints_equal &= bool(torch.equal(k, p))
+    delta = TIE_FACTOR * (logp_err if tie_eps is None else tie_eps)
+    at_first = differ & (steps == first)[:, None, None, :]
+    n_mismatch = int(at_first.sum())
+    untied = int((at_first & (margin > delta)).sum())
+    in_window = (steps <= first)[:, None, None, :].expand_as(margin)
+    n_ties = int((in_window & (margin <= delta)).sum())
+    counts = dict(envs_diverged=int(bad_env.sum()), mismatched_samples=n_mismatch,
+                  not_near_ties=untied, near_tie_samples=n_ties,
+                  samples=int(in_window.sum()))
+    phase("parity", f"{label}: on the {int(good.sum())} envs whose actions all "
+          f"agreed, max |model float err| {err:.3g} (<= {POLICY_BF16_ATOL}), "
+          f"|env float err| {env_err:.3g}, integers equal {ints_equal}; "
+          f"near-tie margin {delta:.3g}: {counts}")
+    check(err <= POLICY_BF16_ATOL and env_err <= POLICY_ATOL and ints_equal,
+          f"{label}: bf16 kernel disagrees with its plain version")
+    check(untied == 0, f"{label}: {untied} differing actions are not near ties")
+    return max(err, env_err), logp_err, counts
+
+
+def rounded_forward(model, x):
+    """The ActorCritic module's forward with the operands of the torso's
+    and the logits head's products rounded to bf16 (f32 sums by cuBLAS),
+    the value head in f32: what the bf16 route computes. (logits, value)."""
+    import torch
+
+    def rnd(a):
+        return a.to(torch.bfloat16).float()
+
+    layers = model.dense_layers()
+    h = x
+    for layer in layers[:-2]:
+        h = torch.tanh(rnd(h) @ rnd(layer.weight).T + layer.bias)
+    logits = rnd(h) @ rnd(layers[-2].weight).T + layers[-2].bias
+    return logits, (h @ layers[-1].weight.T + layers[-1].bias)[:, 0]
+
+
 def policy_phases(dev, custom) -> list[dict]:
     """Phases 7-10: the self-play policy kernels (fused_collect,
     fused_selfplay_rollout) against their plain versions, the
@@ -199,9 +321,13 @@ def policy_phases(dev, custom) -> list[dict]:
         return (*ops.pack_state(state, params), model, gen)
 
     # 7: kernel vs plain version, same uniforms, and in Philox mode at
-    # the main paths' shapes and on the ragged batch. The kernels line
-    # takes each kernel's error at its own main path's shape (K2: config
-    # 4, K4: config 6); the other cases must pass all the same.
+    # the main paths' shapes and on the ragged batch; float32 (exact, the
+    # CUDA-core route) and bfloat16 (the tensor-core route, the main
+    # path's). The kernels line takes each kernel's bf16 error at its own
+    # main path's shape (K2: config 4, K4: config 6); the other cases
+    # must pass all the same.
+    f32, bf16 = torch.float32, torch.bfloat16
+    ties = {"fused_collect": [], "fused_selfplay_rollout": []}
     for label, params, hidden, n_envs, philox, main in (
             (f"config 4 3v3 {H4}", p4, H4, B4, True, "fused_collect"),
             (f"config 6 2v2 {H6}", p6, H6, B6, True, "fused_selfplay_rollout"),
@@ -215,37 +341,67 @@ def policy_phases(dev, custom) -> list[dict]:
         u = torch.rand((T_PARITY, n_draws_per_step(params), n_envs),
                        generator=gen, device=dev)
         tag = f"7 {label} B={n_envs} T={T_PARITY}"
-        k2 = [compare_policy(
-            ops.fused_collect(sf, si, w, 0, params, T_PARITY, uniforms=u),
-            fc.fused_collect_reference(sf, si, w, params, uniforms=u),
-            f"{tag} collect, table", k2_actions)]
-        k4 = [compare_policy(
-            ops.fused_selfplay_rollout(sf, si, wa, wb, 0, params, T_PARITY,
-                                       uniforms=u, return_actions=True),
-            fa.fused_selfplay_rollout_reference(
-                sf, si, wa, wb, params, uniforms=u, return_actions=True),
-            f"{tag} selfplay, table", k4_actions)]
+        draws = [("table", 0, dict(uniforms=u), dict(uniforms=u))]
         if philox:
-            k2.append(compare_policy(
-                ops.fused_collect(sf, si, w, 5, params, T_PARITY),
-                fc.fused_collect_reference(sf, si, w, params, T_PARITY, seed=5),
-                f"{tag} collect, Philox", k2_actions))
-            k4.append(compare_policy(
-                ops.fused_selfplay_rollout(sf, si, wa, wb, 6, params, T_PARITY,
-                                           return_actions=True),
-                fa.fused_selfplay_rollout_reference(
-                    sf, si, wa, wb, params, T_PARITY, seed=6,
-                    return_actions=True),
-                f"{tag} selfplay, Philox", k4_actions))
-        if main:
-            errs[main] = max(k2 if main == "fused_collect" else k4)
+            draws.append(("Philox", 5, {}, dict(n_steps=T_PARITY, seed=5)))
+        for mode in (f32, bf16):
+            k2, k4 = [], []
+            for name, seed, kw, ref_kw in draws:
+                ktag = f"{tag} {str(mode)[6:]}"
+                k2_out = ops.fused_collect(sf, si, w, seed, params, T_PARITY,
+                                           compute_dtype=mode, **kw)
+                k4_out = ops.fused_selfplay_rollout(
+                    sf, si, wa, wb, seed + 1, params, T_PARITY,
+                    return_actions=True, compute_dtype=mode, **kw)
+                ref_kw4 = dict(ref_kw, seed=seed + 1) if "seed" in ref_kw else ref_kw
+                if mode is f32:
+                    k2.append(compare_policy(k2_out, fc.fused_collect_reference(
+                        sf, si, w, params, compute_dtype=mode, **ref_kw),
+                        f"{ktag} collect, {name}", k2_actions))
+                    k4.append(compare_policy(k4_out, fa.fused_selfplay_rollout_reference(
+                        sf, si, wa, wb, params, return_actions=True,
+                        compute_dtype=mode, **ref_kw4),
+                        f"{ktag} selfplay, {name}", k4_actions))
+                    continue
+                calls = []
+                orig = recording(fc, "sample_with_logp", calls)
+                try:
+                    plain = fc.fused_collect_reference(sf, si, w, params,
+                                                       compute_dtype=mode, **ref_kw)
+                finally:
+                    fc.sample_with_logp = orig
+                err, logp_err, n2 = compare_policy_bf16(
+                    k2_out, plain, calls, f"{ktag} collect, {name}", k2_actions,
+                    (5, 6, 9), (0, 1, 2, 7, 8))
+                calls = []
+                orig = recording(fa, "sample_rows", calls)
+                try:
+                    plain = fa.fused_selfplay_rollout_reference(
+                        sf, si, wa, wb, params, return_actions=True,
+                        compute_dtype=mode, **ref_kw4)
+                finally:
+                    fa.sample_rows = orig
+                err4, _, n4 = compare_policy_bf16(
+                    k4_out, plain, calls, f"{ktag} selfplay, {name} (near ties "
+                    "against the collect's logp error)", k4_actions, (),
+                    (0, 1, 2, 3), tie_eps=logp_err)
+                k2.append(err)
+                k4.append(err4)
+                ties["fused_collect"].append(n2)
+                ties["fused_selfplay_rollout"].append(n4)
+            if main and mode is bf16:
+                errs[main] = max(k2 if main == "fused_collect" else k4)
+    for name, counts in ties.items():
+        total = {k: sum(c[k] for c in counts) for k in counts[0]}
+        phase("7 near ties", f"{name} bf16, every case: {total}")
 
     # 8: teacher-forced collect at config 4: the kernel's own obs and
-    # actions through the actor-critic module
+    # actions through the actor-critic module, float32, then bfloat16
+    # against the module's forward with bf16-rounded operands
     sf, si, model, gen = setup(p4, H4, B4, 5)
     w = fc.flatten_actor_critic(model)
     (_, _, obs, dirs, acts, logp, value, reward, done,
-     _) = ops.fused_collect(sf, si, w, 77, p4, T_FORCED)
+     _) = ops.fused_collect(sf, si, w, 77, p4, T_FORCED, compute_dtype=f32)
     f = obs_size(p4)
     x = obs[:, :f].permute(0, 2, 3, 1).reshape(-1, f)   # (view, step, env)
 
@@ -273,8 +429,24 @@ def policy_phases(dev, custom) -> list[dict]:
     check(mir_err <= MIRROR_ATOL and pad_zero, "8: mirror or pad rows")
     check(rew_gap > 1e-4 and dones_agree and in_range, "8: rewards/dones/actions")
 
-    # 9: Philox sampling statistics. Per group and choice, the kernel's
-    # frequency against the mean softmax probability of its own obs.
+    (_, _, obs, dirs, acts, logp, value, _, done,
+     _) = ops.fused_collect(sf, si, w, 78, p4, T_FORCED)
+    x = obs[:, :f].permute(0, 2, 3, 1).reshape(-1, f)
+    with torch.no_grad():
+        logits, v = rounded_forward(model, x)
+        lp, _ = action_log_prob_and_entropy_packed(logits, flat(dirs), flat(acts))
+    v_err = (v - flat(value)).abs().max().item()
+    lp_err = (lp - flat(logp)).abs().max().item()
+    phase("8 forced", f"config 4 B={B4} T={T_FORCED}, Philox, bfloat16: value err "
+          f"{v_err:.3g}, logp err {lp_err:.3g} (<= {FORCED_BF16_ATOL}) against the "
+          f"module's forward with bf16-rounded operands; "
+          f"{int(done.sum()) // 2} episode ends")
+    check(v_err <= FORCED_BF16_ATOL and lp_err <= FORCED_BF16_ATOL,
+          "8: bf16 logp/value")
+
+    # 9: Philox sampling statistics of the bf16 route (the main path's).
+    # Per group and choice, the kernel's frequency against the mean
+    # softmax probability of its own obs through the bf16-rounded forward.
     def max_z(counts, p_sum, var_sum, n):
         se = var_sum.sqrt() / n
         return ((counts / n - p_sum / n).abs() / se).max().item()
@@ -289,7 +461,7 @@ def policy_phases(dev, custom) -> list[dict]:
         pg = probs[:, g]
         z2 = max(z2, max_z(onehot.sum(0), pg.sum(0), (pg * (1 - pg)).sum(0),
                            pg.shape[0]))
-    phase("9 stats", f"collect: {x.shape[0]} samples x {n_groups} groups, "
+    phase("9 stats", f"collect, bfloat16: {x.shape[0]} samples x {n_groups} groups, "
           f"max |freq - p| / SE {z2:.3f} (<= 5)")
     check(z2 <= 5.0, "9: collect sampling statistics")
 
@@ -304,7 +476,8 @@ def policy_phases(dev, custom) -> list[dict]:
         rows = fa.split_state(sf, si, p6.n_bodies)
         view_probs = []
         for view, wts in ((0, wa), (1, wb)):
-            logits6 = fa.mlp_logit_rows(fa.obs_matrix(*rows[:5], p6, view == 1), wts)
+            logits6 = fa.mlp_logit_rows(fa.obs_matrix(*rows[:5], p6, view == 1),
+                                        wts, bf16)
             view_probs.append(torch.softmax(
                 logits6.T.double().reshape(-1, n_groups, 5), -1))
         sf, si, _, _, dirs4, acts4 = ops.fused_selfplay_rollout(
@@ -317,7 +490,7 @@ def policy_phases(dev, custom) -> list[dict]:
                 acc[1][view, g] += pg.sum(0)
                 acc[2][view, g] += (pg * (1 - pg)).sum(0)
     z4 = max_z(*acc, n_calls * B4)
-    phase("9 stats", f"selfplay: {n_calls} x {B4} envs x 2 views x {n_groups} "
+    phase("9 stats", f"selfplay, bfloat16: {n_calls} x {B4} envs x 2 views x {n_groups} "
           f"groups, max |freq - p| / SE {z4:.3f} (<= 5)")
     check(z4 <= 5.0, "9: selfplay sampling statistics")
 
@@ -362,9 +535,13 @@ def policy_phases(dev, custom) -> list[dict]:
     check(abs(m["win_rate_a"] + m["win_rate_b"] + m["draw_rate"] - 1.0) < 1e-9
           and (m["goals"] >= 0).all() and math.isfinite(m["mean_team0_reward"]),
           f"10: evaluation metrics {m}")
-    launches = {k: ops.LAUNCHES[k] for k in ("fused_collect", "fused_selfplay_rollout")}
-    check(all(n > 0 for n in launches.values()),
+    launches = {k: ops.LAUNCHES[k] for k in (
+        "fused_collect", "fused_selfplay_rollout", "fused_collect_f32",
+        "fused_selfplay_rollout_f32")}
+    check(launches["fused_collect"] > 0 and launches["fused_selfplay_rollout"] > 0,
           f"10: the main path skipped a kernel: {launches}")
+    check(launches["fused_collect_f32"] == launches["fused_selfplay_rollout_f32"] == 0,
+          f"10: the main path left the tensor-core route: {launches}")
     phase("10 main path", f"collect_rollout_fused + compute_gae, 3v3 B={B4} "
           f"T={T4} hidden {H4}: {ms4:.3f} ms/iteration, "
           f"{B4 * T4 / ms4 * 1e3:.6g} env-steps/s ({iters4} iterations)")
@@ -372,16 +549,56 @@ def policy_phases(dev, custom) -> list[dict]:
           f"{ms6:.3f} ms/evaluation, {B6 * T6 / ms6 * 1e3:.6g} env-steps/s "
           f"({iters6} evaluations); last: goals {m['goals'].tolist()}, "
           f"win rates {m['win_rate_a']:.4f} / {m['win_rate_b']:.4f}")
-    phase("10 main path", f"kernel launches in the main path: {launches}")
+    phase("10 main path", f"kernel launches in the main path (bfloat16 tensor-core "
+          f"route under each kernel's name, float32 under _f32): {launches}")
+    plan4 = fa.tc_plan(p4, [H4], B4)
+    plan6 = fa.tc_plan(p6, [H6, H6], B6)
+    phase("10 plan", f"fused_collect config 4: {plan4}")
+    phase("10 plan", f"fused_selfplay_rollout config 6: {plan6}")
 
-    # the kernels alone, then the plain versions at the same batch
+    # the kernels alone in both routes, in turns; the env step alone
+    # (fused_rollout, random actions) at the same batches; the plain
+    # versions at the same batch
     sf4, si4 = ops.pack_state(box["runner"].env_state, p4)
     w4 = fc.flatten_actor_critic(model)
-    ms_k2 = time_cuda(lambda i: ops.fused_collect(sf4, si4, w4, 500 + i, p4, T4), 3)
     state6, _ = vector.reset_batch(gen, p6, B6, device=dev)
     sf6, si6 = ops.pack_state(state6, p6)
-    ms_k4 = time_cuda(lambda i: ops.fused_selfplay_rollout(
-        sf6, si6, wa6, wb6, 600 + i, p6, T6), 5)
+
+    def k2(mode):
+        return lambda i: ops.fused_collect(sf4, si4, w4, 500 + i, p4, T4,
+                                           compute_dtype=mode)
+
+    def k4(mode):
+        return lambda i: ops.fused_selfplay_rollout(sf6, si6, wa6, wb6, 600 + i, p6,
+                                                    T6, compute_dtype=mode)
+
+    ms_k2, ms_k2_f32, ms_k2_again = (time_cuda(k2(mode), 3) / T4
+                                     for mode in (bf16, f32, bf16))
+    ms_k4, ms_k4_f32, ms_k4_again = (time_cuda(k4(mode), 5) / T6
+                                     for mode in (bf16, f32, bf16))
+    # the plan's choice against the other layouts it weighs (the plan
+    # function replaced for the run, as with update_plan in phase 13)
+    plan_fn, layouts = fa.tc_plan, {}
+    for label, fn, n_steps, alternatives in (
+            ("fused_collect config 4", k2, T4, ((128, False), (64, True), (32, True))),
+            ("fused_selfplay_rollout config 6", k4, T6,
+             ((32, False), (64, True), (128, True)))):
+        for envs, resident in alternatives:
+            def forced(*a, envs=envs, resident=resident, **kw):
+                p = plan_fn(*a, **kw)
+                return dict(p, envs=envs, weights="resident" if resident else "streamed",
+                            smem=(p["frag_bytes"] if resident else 0)
+                            + envs // 32 * sum(p["t_bytes"]))
+            fa.tc_plan = fc.tc_plan = forced
+            try:
+                layouts[f"{label}, {envs} envs, {'resident' if resident else 'streamed'}"] = (
+                    time_cuda(fn(bf16), 3) / n_steps)
+            finally:
+                fa.tc_plan = fc.tc_plan = plan_fn
+    phase("10 plan", "other layouts, ms/step (the plan's: the bfloat16 times "
+          "below): " + "; ".join(f"{k} {v:.5f}" for k, v in layouts.items()))
+    ms_env4 = time_cuda(lambda i: ops.fused_rollout(sf4, si4, 700 + i, p4, T4), 3) / T4
+    ms_env6 = time_cuda(lambda i: ops.fused_rollout(sf6, si6, 800 + i, p6, T6), 5) / T6
     t_plain = 2
     fc.fused_collect_reference(sf4, si4, w4, p4, 1, seed=0)
     plain_k2 = time_cuda(lambda i: fc.fused_collect_reference(
@@ -399,44 +616,91 @@ def policy_phases(dev, custom) -> list[dict]:
     pa, pb = fa.mlp_team_policy(wa6, p6), fa.mlp_team_policy(wb6, p6)
     ms_plain6 = time_cuda(lambda i: evaluate.evaluate(
         p6, pa, pb, n_envs=B6, n_steps=t_plain, seed=i, device=dev), 1)
-    phase("10 kernels", f"fused_collect config 4 T={T4}: {ms_k2:.3f} ms "
-          f"({ms_k2 / T4:.5f} ms/step); plain version {plain_k2:.1f} ms/step")
-    phase("10 kernels", f"fused_selfplay_rollout config 6 T={T6}: {ms_k4:.3f} ms "
-          f"({ms_k4 / T6:.5f} ms/step); plain version {plain_k4:.1f} ms/step")
+    phase("10 kernels", f"fused_collect config 4 T={T4}, ms/step: bfloat16 on "
+          f"the tensor cores {ms_k2:.5f} (again after float32: {ms_k2_again:.5f}), "
+          f"float32 on the CUDA cores {ms_k2_f32:.5f}; the env step alone "
+          f"(fused_rollout) {ms_env4:.5f}; plain version {plain_k2:.1f}")
+    phase("10 kernels", f"fused_selfplay_rollout config 6 T={T6}, ms/step: "
+          f"bfloat16 on the tensor cores {ms_k4:.5f} (again: {ms_k4_again:.5f}), "
+          f"float32 on the CUDA cores {ms_k4_f32:.5f}; the env step alone "
+          f"(fused_rollout) {ms_env6:.5f}; plain version {plain_k4:.1f}")
     phase("10 plain", f"collect_rollout + compute_gae, config 4 T={t_plain}: "
           f"{ms_plain4:.1f} ms, {B4 * t_plain / ms_plain4 * 1e3:.6g} env-steps/s")
     phase("10 plain", f"evaluate, config 6 T={t_plain}: {ms_plain6:.1f} ms, "
           f"{B6 * t_plain / ms_plain6 * 1e3:.6g} env-steps/s")
     # bounds per step: state and weights read, state written once per
     # call; K2's obs, per-step rows and bootstrap values, K4's rewards
-    # and goals written once. Operations: the env step, and the MLP of
-    # both views (K2: one actor-critic; K4: each team's policy)
+    # and goals written once. Operations per env-step: the env step, and
+    # the MLP of both views (K2: one actor-critic; K4: each team's
+    # policy). In bfloat16 the products of the torso and the logits head
+    # run on the tensor cores; the biases and the value head stay f32.
+    def bf16_ops(weights):       # two per multiply-add of the bf16 products
+        return sum(2 * w.numel() for w in weights[::2])
+
     ops_k2 = env_step_ops(p4) + 2 * mlp_ops(w4)
+    ops_k2_bf16 = 2 * bf16_ops(w4[:-2])
     bytes_k2 = (2 * nbytes(sf4, si4) + nbytes(*w4)
                 + 4 * 2 * B4 * (fc.feature_rows(p4) * T4 + 6 * T4 + 1))
-    bound_k2 = bound(bytes_k2 / T4, B4 * ops_k2)
+    bound_k2_f32 = bound(bytes_k2 / T4, B4 * ops_k2)
+    bound_k2 = bound(bytes_k2 / T4, B4 * (ops_k2 - ops_k2_bf16), B4 * ops_k2_bf16)
     ops_k4 = env_step_ops(p6) + mlp_ops(wa6) + mlp_ops(wb6)
+    ops_k4_bf16 = bf16_ops(wa6) + bf16_ops(wb6)
     bytes_k4 = (2 * nbytes(sf6, si6) + nbytes(*wa6, *wb6)
                 + 4 * B6 * (T6 + 2))
-    bound_k4 = bound(bytes_k4 / T6, B6 * ops_k4)
-    phase("10 bound", f"fused_collect: {ops_k2} operations per env-step -> "
-          f"{bound_k2[0]:.6g} ms/step ({bound_k2[1]}); fused_selfplay_rollout: "
-          f"{ops_k4} -> {bound_k4[0]:.6g} ms/step ({bound_k4[1]})")
+    bound_k4_f32 = bound(bytes_k4 / T6, B6 * ops_k4)
+    bound_k4 = bound(bytes_k4 / T6, B6 * (ops_k4 - ops_k4_bf16), B6 * ops_k4_bf16)
+    phase("10 bound", f"fused_collect: {ops_k2} operations per env-step, of them "
+          f"{ops_k2_bf16} bf16 products -> bfloat16 {bound_k2[0]:.6g} ms/step "
+          f"({bound_k2[1]}), float32 {bound_k2_f32[0]:.6g} ({bound_k2_f32[1]}); "
+          f"fused_selfplay_rollout: {ops_k4}, of them {ops_k4_bf16} bf16 -> "
+          f"bfloat16 {bound_k4[0]:.6g} ({bound_k4[1]}), float32 "
+          f"{bound_k4_f32[0]:.6g} ({bound_k4_f32[1]})")
+    # yardstick, never called by the port: cuBLAS (torch.matmul, bf16) on
+    # the same per-step layer products of both views
+    x4 = [torch.randn(2 * B4, d, device=dev, dtype=bf16) for d in (obs_size(p4), *H4)]
+    m4 = [w.to(bf16) for w in w4[:-2:2]]
+    x6 = [torch.randn(B6, d, device=dev, dtype=bf16) for d in (obs_size(p6), *H6)]
+    m6 = [w.to(bf16) for w in (*wa6[::2], *wb6[::2])]
+
+    def products4(i):
+        for x, w in zip(x4, m4):
+            torch.matmul(x, w)
+
+    def products6(i):
+        for v in range(2):
+            for x, w in zip(x6, m6[3 * v:3 * v + 3]):
+                torch.matmul(x, w)
+
+    products4(0)
+    products6(0)
+    ms_cublas4, ms_cublas6 = time_cuda(products4, 20), time_cuda(products6, 20)
+    phase("10 kernels", f"yardstick: cuBLAS (torch.matmul, bf16) on the same "
+          f"per-step layer products of both views: config 4 {ms_cublas4:.5f} "
+          f"ms/step ({B4 * ops_k2_bf16 / ms_cublas4 / 1e9:.4g} TFLOP/s), config 6 "
+          f"{ms_cublas6:.5f} ({B6 * ops_k4_bf16 / ms_cublas6 / 1e9:.4g} TFLOP/s), "
+          f"20 iterations each")
+    del x4, x6
+    for line in ptxas_summary(_build_log()):
+        if line.startswith(("collect_", "selfplay_")):
+            phase("10 kernels", line)
     return [
         {"name": "fused_collect", "route": "cuda", "source": POLICY_SOURCE,
          "replaces": REPLACES["fused_collect"],
          "launches": launches["fused_collect"],
-         "max_abs_err": errs["fused_collect"], "ms": ms_k2 / T4,
+         "max_abs_err": errs["fused_collect"], "ms": ms_k2,
          "plain_ms": plain_k2, "bound_ms": bound_k2[0],
          "bound_by": bound_k2[1], "library_ms": None,
-         "unit": f"ms per step of the {B4}-env 3v3 batch, hidden {H4}"},
+         "f32_route_ms": ms_k2_f32, "f32_bound_ms": bound_k2_f32[0],
+         "unit": f"ms per step of the {B4}-env 3v3 batch, hidden {H4}, bfloat16"},
         {"name": "fused_selfplay_rollout", "route": "cuda",
          "source": POLICY_SOURCE, "replaces": REPLACES["fused_selfplay_rollout"],
          "launches": launches["fused_selfplay_rollout"],
-         "max_abs_err": errs["fused_selfplay_rollout"], "ms": ms_k4 / T6,
+         "max_abs_err": errs["fused_selfplay_rollout"], "ms": ms_k4,
          "plain_ms": plain_k4, "bound_ms": bound_k4[0],
          "bound_by": bound_k4[1], "library_ms": None,
-         "unit": f"ms per step of the {B6}-env 2v2 batch, two MLPs {H6}"},
+         "f32_route_ms": ms_k4_f32, "f32_bound_ms": bound_k4_f32[0],
+         "unit": f"ms per step of the {B6}-env 2v2 batch, two MLPs {H6}, "
+                 f"bfloat16"},
     ]
 
 

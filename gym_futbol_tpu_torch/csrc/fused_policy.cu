@@ -15,7 +15,10 @@
 //   team-0 reward per step and the per-env goal totals.
 // The plain PyTorch versions are fused_collect_reference
 // (ops/fused_collect.py) and fused_selfplay_rollout_reference
-// (ops/fused_actor.py), operation for operation.
+// (ops/fused_actor.py), operation for operation, with
+// compute_dtype=torch.float32: this file is the exact-f32 route (the
+// parity mode); the main path's bf16 route, with the layer products on
+// the tensor cores, is fused_policy_tc.cu.
 //
 // Design. Lane l of warp 0 owns env blockIdx.x * 32 + l for the whole
 // rollout, its state in registers as in fused_rollout.cu, and the step

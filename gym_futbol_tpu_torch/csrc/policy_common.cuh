@@ -7,9 +7,13 @@
 //
 // Every product and sum is rounded as the plain PyTorch versions round
 // them (ops/fused_actor.py dense_rows): build with --fmad=false.
+//
+// At the end, the tensor-core helpers of the bf16 route
+// (fused_policy_tc.cu): ldmatrix and mma.sync.m16n8k16.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "futbol_step.cuh"
@@ -91,16 +95,12 @@ __device__ __forceinline__ int view_body(int j) {
 }
 
 // The observation of one view (env.observe, or env.mirror_obs of it for
-// MIRROR) into rows 0..F-1 of `x`, F = 4 * NB + 2, positions scaled by
-// the reciprocals as _obs_matrix scales them. With `obs` non-null, also
-// row f to obs[f * row_stride], zeros in rows F..f_pad-1.
+// MIRROR) as F = 4 * NB + 2 values, positions scaled by the reciprocals
+// as _obs_matrix scales them.
 template <int NB, bool MIRROR>
-__device__ __forceinline__ void build_obs(const Env<NB>& e, const ObsConsts& oc,
-                                          float* x, float* __restrict__ obs,
-                                          size_t row_stride, int f_pad) {
+__device__ __forceinline__ void view_obs(const Env<NB>& e, const ObsConsts& oc,
+                                         float (&v)[4 * NB + 2]) {
   constexpr int PPT = (NB - 1) / 2;
-  constexpr int F = 4 * NB + 2;
-  float v[F];
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
     const int i = view_body<NB, MIRROR>(j);
@@ -116,6 +116,17 @@ __device__ __forceinline__ void build_obs(const Env<NB>& e, const ObsConsts& oc,
   const float owns1 = (e.poss > 0 && owner_p >= PPT) ? 1.0f : 0.0f;
   v[4 * NB] = MIRROR ? owns1 : owns0;
   v[4 * NB + 1] = MIRROR ? owns0 : owns1;
+}
+
+// view_obs into rows 0..F-1 of `x`. With `obs` non-null, also row f to
+// obs[f * row_stride], zeros in rows F..f_pad-1.
+template <int NB, bool MIRROR>
+__device__ __forceinline__ void build_obs(const Env<NB>& e, const ObsConsts& oc,
+                                          float* x, float* __restrict__ obs,
+                                          size_t row_stride, int f_pad) {
+  constexpr int F = 4 * NB + 2;
+  float v[F];
+  view_obs<NB, MIRROR>(e, oc, v);
 #pragma unroll
   for (int f = 0; f < F; ++f) x[f * kBlock] = v[f];
   if (obs != nullptr) {
@@ -252,6 +263,42 @@ cudaError_t prepare(K kernel, int columns, size_t& smem_bytes) {
   smem_bytes = static_cast<size_t>(columns) * kBlock * sizeof(float);
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes));
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core helpers (bf16 operands, f32 sums)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l naming row l % 8
+// of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)) : "memory");
+}
+
+// d += a b on one m16n8k16 tile: bf16 operands, f32 sums. a is the A
+// fragment of a row-major 16 x 16 tile, (b0, b1) the B fragment of a
+// 16 x 8 one; d [e] is element (g + 8 (e / 2), 2 t + e % 2) of D, with
+// g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 (to nearest even) in one register, x in
+// the low half.
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&p);
 }
 
 }  // namespace futbol

@@ -139,12 +139,16 @@ def uniform_random_weights_like(weights: tuple) -> tuple:
 def evaluate_fused(
     params: EnvParams, weights_a: tuple, weights_b: tuple | None = None,
     n_envs: int = 4096, n_steps: int = 300, seed: int = 0,
+    compute_dtype=torch.bfloat16,
 ) -> dict:
     """Policy-vs-policy evaluation with both teams' MLPs inside the
     self-play kernel, on the weights' device (the plain version on the
     CPU). ``weights_a``/``weights_b``: flat (W1, b1, ..., Wl, bl) tuples
     (``ops.fused_actor.init_mlp``); ``weights_b`` defaults to
-    ``weights_a`` (self-play). Same metrics as :func:`evaluate`."""
+    ``weights_a`` (self-play). ``compute_dtype``: bfloat16 (the
+    tensor-core kernel) or float32 (exact), as
+    ``ops.fused_actor.fused_selfplay_rollout`` takes it. Same metrics as
+    :func:`evaluate`."""
     from .ops import pack_state
     from .ops.fused_actor import fused_selfplay_rollout
 
@@ -154,5 +158,6 @@ def evaluate_fused(
     state, _ = reset_batch(gen, params, n_envs, device=device)
     sf, si = pack_state(state, params)
     _, _, rew, goals = fused_selfplay_rollout(
-        sf, si, weights_a, weights_b, seed + 1, params, n_steps)
+        sf, si, weights_a, weights_b, seed + 1, params, n_steps,
+        compute_dtype=compute_dtype)
     return _match_metrics(goals, rew.mean(), n_envs)

@@ -161,6 +161,39 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_selfplay.restype = i
+    lib.futbol_fused_collect_tc.argtypes = [
+        p, p, p, p,           # statef, statei in; statef, statei out
+        p, i, p,              # bf16 weight fragments, their 16-byte units, f32 vector
+        i32p, i, i,           # layer table [n, 4], n_layers (torso + logits),
+                              # value head offset
+        i32p,                 # plan: envs, resident, tile bytes x2, row strides x2
+        p, p, p, p, p, p, p,  # obs, dirs, acts, logp, value, reward, done
+        p,                    # last_value
+        p,                    # uniforms table or NULL
+        ctypes.c_uint32,      # seed
+        i, i, i, i,           # n_bodies, B, T, F_pad
+        i, i, i,              # substeps, solver_iterations, max_steps
+        f32p, i,              # host constants, count
+        f32p,                 # observation scales
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_fused_collect_tc.restype = i
+    lib.futbol_fused_selfplay_tc.argtypes = [
+        p, p, p, p,           # statef, statei in; statef, statei out
+        p, i, p,              # bf16 weight fragments (both MLPs), units, f32 vector
+        i32p, i32p, i,        # layer tables of A and B, n_layers (both)
+        i32p,                 # plan
+        p, p,                 # reward, goals
+        p, p,                 # packed dirs, acts [T, 2, B] or NULL
+        p,                    # uniforms table or NULL
+        ctypes.c_uint32,      # seed
+        i, i, i,              # n_bodies, B, T
+        i, i, i,              # substeps, solver_iterations, max_steps
+        f32p, i,              # host constants, count
+        f32p,                 # observation scales
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_fused_selfplay_tc.restype = i
     lib.futbol_fused_recurrent.argtypes = [
         p, p, p, p,           # statef, statei in; statef, statei out
         p, i32p, i, i,        # flat weights, layer table [n_torso + 2, 4],

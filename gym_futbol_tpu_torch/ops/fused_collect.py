@@ -7,9 +7,15 @@ through one per-team actor-critic (tanh torso, logits head, value head);
 each view's actions are sampled with their joint log-prob, team 1's
 directions are un-mirrored, and the env steps with auto-reset. After the
 loop come the bootstrap values of the carried state. On a CUDA tensor
-:func:`fused_collect` runs it all in one launch of
-``csrc/fused_policy.cu`` (``collect_kernel``); on a CPU tensor it runs
-the plain version :func:`fused_collect_reference`.
+:func:`fused_collect` runs it all in one launch: with ``compute_dtype``
+bfloat16 (the default) of ``csrc/fused_policy_tc.cu``
+(``collect_tc_kernel``: the torso's and the logits head's products on
+the tensor cores, operands rounded to bf16 and summed in f32, as the JAX
+kernel's products run on its chip; the value head, biases and tanh in
+f32), with float32 of ``csrc/fused_policy.cu`` (``collect_kernel``,
+exact f32: the parity mode); on a CPU tensor it runs the plain version
+:func:`fused_collect_reference` in the same mode. The obs buffer holds
+the unrounded f32 obs in both modes.
 
 OUTPUTS (the JAX package's, without its ``(B//128, 128)`` split):
 
@@ -39,6 +45,8 @@ from .. import env as env_core
 from ..models.policy import N_CHOICES, ActorCritic
 from ..types import EnvParams
 from .fused_actor import (
+    check_compute_dtype,
+    check_limits,
     check_mlp,
     dense_rows,
     joint_action,
@@ -48,6 +56,9 @@ from .fused_actor import (
     pack_rows,
     sample_with_logp,
     step_draws,
+    tc_pack,
+    tc_plan,
+    tc_plan_ints,
 )
 from .fused_rollout import (
     LAUNCHES,
@@ -107,13 +118,16 @@ def _check_weights(weights: tuple, params: EnvParams) -> list[tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 
-def _forward(x: torch.Tensor, weights: tuple):
+def _forward(x: torch.Tensor, weights: tuple, compute_dtype=torch.float32):
     """Actor-critic forward on ``x`` ``[F, B]``: (logits ``[G*5, B]``,
-    value ``[B]``)."""
+    value ``[B]``). ``compute_dtype`` rounds the torso's and the logits
+    head's operands (:func:`dense_rows`); the value head stays f32 on the
+    unrounded torso output, as on the TPU (a degenerate dot)."""
     h = x
     for li in range(len(weights) // 2 - 2):
-        h = torch.tanh(dense_rows(h, weights[2 * li], weights[2 * li + 1]))
-    logits = dense_rows(h, weights[-4], weights[-3])
+        h = torch.tanh(dense_rows(h, weights[2 * li], weights[2 * li + 1],
+                                  compute_dtype))
+    logits = dense_rows(h, weights[-4], weights[-3], compute_dtype)
     return logits, dense_rows(h, weights[-2], weights[-1])[0]
 
 
@@ -121,17 +135,20 @@ def fused_collect_reference(
     statef: torch.Tensor, statei: torch.Tensor, weights: tuple,
     params: EnvParams, n_steps: int | None = None, *,
     uniforms: torch.Tensor | None = None, seed: int | None = None,
+    compute_dtype=torch.bfloat16,
 ):
     """The kernel's computation as T steps of row-matrix code.
 
     Exactly one draw source: ``uniforms`` f32 ``[T, n_draws, B]`` or
     ``seed`` (the kernel's Philox stream); the per-step draw order is
     :func:`gym_futbol_tpu_torch.ops.fused_actor.fused_selfplay_rollout_reference`'s.
+    ``compute_dtype`` as :func:`fused_collect`'s (:func:`_forward`).
     Returns (statef', statei', obs, dirs, acts, logp, value, reward,
     done, last_value) as listed in the module docstring.
     """
     if (uniforms is None) == (seed is None):
         raise ValueError("give exactly one of uniforms, seed")
+    check_compute_dtype(compute_dtype)
     _check_weights(weights, params)
     n, ppt = params.n_bodies, params.players_per_team
     g = 2 * ppt
@@ -149,7 +166,7 @@ def fused_collect_reference(
         for v in range(2):
             x = obs_matrix(px, py, vx, vy, poss, params, v == 1)
             obs[v, :f, k] = x
-            logits, value = _forward(x, weights)
+            logits, value = _forward(x, weights, compute_dtype)
             iv, logp = sample_with_logp(logits, g, u[v * g:(v + 1) * g])
             idx.append(iv)
             rows["logp"].append(logp)
@@ -168,7 +185,8 @@ def fused_collect_reference(
         px, py, vx, vy = s.px, s.py, s.vx, s.vy
         poss, s0, s1, t = s.possession, s.score0, s.score1, s.t
     last_value = torch.stack([
-        _forward(obs_matrix(px, py, vx, vy, poss, params, v == 1), weights)[1]
+        _forward(obs_matrix(px, py, vx, vy, poss, params, v == 1), weights,
+                 compute_dtype)[1]
         for v in range(2)])
     per_step = {k: torch.stack(r).reshape(n_steps, 2, b) for k, r in rows.items()}
     return (torch.stack(px + py + vx + vy),
@@ -185,15 +203,21 @@ def fused_collect_reference(
 def fused_collect(
     statef: torch.Tensor, statei: torch.Tensor, weights: tuple, seed: int,
     params: EnvParams, n_steps: int, uniforms: torch.Tensor | None = None,
+    compute_dtype=torch.bfloat16,
 ):
     """Collect ``n_steps`` of self-play PPO experience (module docstring).
 
     ``weights``: the flat actor-critic tuple of
     :func:`flatten_actor_critic`. Draws come from Philox keyed by
     ``seed`` (an int; a new seed for each call), or from ``uniforms``
-    f32 ``[n_steps, n_draws, B]``. Returns (statef', statei', obs, dirs,
-    acts, logp, value, reward, done, last_value).
+    f32 ``[n_steps, n_draws, B]``. ``compute_dtype``: bfloat16 (the main
+    path, the tensor-core kernel) or float32 (exact, the CUDA-core
+    kernel); the layout of each is
+    :func:`gym_futbol_tpu_torch.ops.fused_actor.tc_plan`'s. Returns
+    (statef', statei', obs, dirs, acts, logp, value, reward, done,
+    last_value).
     """
+    check_compute_dtype(compute_dtype)
     b = _check_state(statef, statei, params)
     dims = _check_weights(weights, params)
     if any(w.device != statef.device for w in weights):
@@ -201,16 +225,14 @@ def fused_collect(
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
     check_uniforms(uniforms, n_steps, params, statef)
+    check_limits(dims[:-1])
     if statef.device.type == "cpu":
         return fused_collect_reference(
             statef, statei, weights, params, n_steps, uniforms=uniforms,
-            seed=None if uniforms is not None else seed)
+            seed=None if uniforms is not None else seed,
+            compute_dtype=compute_dtype)
     b, c_consts, stream = _kernel_args(statef, statei, params)
-    # torso layers, then the logits and value heads as one layer
-    layers = list(zip(weights[:-4:2], weights[1:-4:2]))
-    layers.append((torch.cat([weights[-4], weights[-2]], 1),
-                   torch.cat([weights[-3], weights[-1]], 0)))
-    flat, table = pack_mlp(layers)
+    torso = list(zip(weights[:-4:2], weights[1:-4:2]))
     f_pad = feature_rows(params)
     dev = statef.device
 
@@ -225,17 +247,32 @@ def fused_collect(
     scales = (ctypes.c_float * 3)(*obs_scales(params))
     from . import _build
 
+    outs = (obs.data_ptr(), dirs.data_ptr(), acts.data_ptr(), logp.data_ptr(),
+            value.data_ptr(), reward.data_ptr(), done.data_ptr(),
+            last_value.data_ptr(), None if uniforms is None else uniforms.data_ptr(),
+            seed & 0xFFFFFFFF, params.n_bodies, b, n_steps, f_pad,
+            params.substeps, params.solver_iterations, params.max_steps,
+            c_consts, len(c_consts), scales, stream)
     lib = _build.load()
-    err = lib.futbol_fused_collect(
-        statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
-        flat.data_ptr(), table, len(layers), obs.data_ptr(), dirs.data_ptr(),
-        acts.data_ptr(), logp.data_ptr(), value.data_ptr(), reward.data_ptr(),
-        done.data_ptr(), last_value.data_ptr(),
-        None if uniforms is None else uniforms.data_ptr(),
-        seed & 0xFFFFFFFF, params.n_bodies, b, n_steps, f_pad,
-        params.substeps, params.solver_iterations, params.max_steps,
-        c_consts, len(c_consts), scales, stream,
-    )
+    if compute_dtype == torch.float32:
+        # torso layers, then the logits and value heads as one layer
+        layers = torso + [(torch.cat([weights[-4], weights[-2]], 1),
+                           torch.cat([weights[-3], weights[-1]], 0))]
+        flat, table = pack_mlp(layers)
+        err = lib.futbol_fused_collect(
+            statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
+            flat.data_ptr(), table, len(layers), *outs)
+        name = "fused_collect_f32"
+    else:
+        plan = tc_plan(params, [[d[1] for d in dims[:-2]]], b)
+        frags, fv, (table,), (wv_off,) = tc_pack(
+            [(torso + [(weights[-4], weights[-3])], (weights[-2], weights[-1]))],
+            params)
+        err = lib.futbol_fused_collect_tc(
+            statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
+            frags.data_ptr(), frags.numel() // 8, fv.data_ptr(), table,
+            len(torso) + 1, wv_off, tc_plan_ints(plan), *outs)
+        name = "fused_collect"
     _raise_on_error(err, "fused_collect")
-    LAUNCHES["fused_collect"] += 1
+    LAUNCHES[name] += 1
     return sf, si, obs, dirs, acts, logp, value, reward, done, last_value

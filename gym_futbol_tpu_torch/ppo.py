@@ -227,15 +227,18 @@ def stack_steps(steps: list[Transition]) -> Transition:
 @torch.no_grad()
 def collect_rollout_fused(
     runner: RunnerState, env_params: EnvParams, cfg: PPOConfig,
-    uniforms: torch.Tensor | None = None,
+    uniforms: torch.Tensor | None = None, compute_dtype=torch.bfloat16,
 ) -> tuple[RunnerState, Transition, torch.Tensor]:
     """:func:`collect_rollout` on the fused kernel: both views' forward,
     sampling, the env step and auto-reset for all T steps in one launch
     on a CUDA device (its plain version on the CPU). The sampling seed
     is drawn from ``runner.generator``; ``uniforms`` ``[T, n_draws, B]``
-    replaces the kernel's Philox stream. logp and value are the kernel's
-    own for its own actions. Returns (runner, traj with feature-major
-    obs, bootstrap value ``[2B]``)."""
+    replaces the kernel's Philox stream. ``compute_dtype``: bfloat16 (the
+    layer products' operands rounded as the JAX kernel's are on its chip,
+    the tensor-core kernel) or float32 (exact), as
+    :func:`ops.fused_collect.fused_collect` takes it. logp and value are
+    the kernel's own for its own actions. Returns (runner, traj with
+    feature-major obs, bootstrap value ``[2B]``)."""
     from .ops import pack_state, unpack_state
     from .ops.fused_collect import flatten_actor_critic, fused_collect
 
@@ -245,7 +248,8 @@ def collect_rollout_fused(
     seed = int(torch.randint(0, 2**31 - 1, (), generator=gen, device=gen.device))
     (sf, si, obs, dirs, acts, logp, value, reward, done,
      last_v) = fused_collect(sf, si, flatten_actor_critic(runner.model), seed,
-                             env_params, cfg.rollout_steps, uniforms=uniforms)
+                             env_params, cfg.rollout_steps, uniforms=uniforms,
+                             compute_dtype=compute_dtype)
     t, b = cfg.rollout_steps, sf.shape[1]
     f = obs.shape[1]  # F_pad
     traj = Transition(

@@ -11,8 +11,11 @@ and 5v5: pos/vel rtol 1e-4 / atol 1e-3, rewards rtol 1e-4 / atol 1e-4,
 integer state exact (the kernel rounds every operation as the plain
 version does, so on the card the two agree bitwise in practice). The
 policy kernels in table and Philox modes, 3v3 at a ragged batch, the
-custom params and 2v2 with the evaluation's (128, 128) MLPs: integers
-and sampled actions exact, floats 1e-5. The update kernels at 2v2
+custom params and 2v2 with the evaluation's (128, 128) MLPs: the float32
+route with integers and sampled actions exact, floats 1e-5; the
+bfloat16 route (tensor cores) on the uniforms table, every differing
+action a near tie, floats on the agreeing envs within their bounds
+(given at the test). The update kernels at 2v2
 (64, 64) in both modes (per leaf rel-L2, bounds with their reasons at
 the test) and one train_iteration on the collect and update kernels.
 The recurrent collect in table and Philox modes from non-zero carries
@@ -139,27 +142,113 @@ def test_policy_kernels_match_plain(cuda, params, hidden, n_envs):
     torch.backends.cuda.matmul.allow_tf32 = False
     sf, si, w, wa, wb, u = _policy_case(cuda, params, hidden, n_envs)
     before = dict(ops.LAUNCHES)
+    f32 = dict(compute_dtype=torch.float32)      # the exact route
     cases = [
-        (ops.fused_collect(sf, si, w, 0, params, T, uniforms=u),
-         tfc.fused_collect_reference(sf, si, w, params, uniforms=u)),
-        (ops.fused_collect(sf, si, w, 41, params, T),
-         tfc.fused_collect_reference(sf, si, w, params, T, seed=41)),
+        (ops.fused_collect(sf, si, w, 0, params, T, uniforms=u, **f32),
+         tfc.fused_collect_reference(sf, si, w, params, uniforms=u, **f32)),
+        (ops.fused_collect(sf, si, w, 41, params, T, **f32),
+         tfc.fused_collect_reference(sf, si, w, params, T, seed=41, **f32)),
         (ops.fused_selfplay_rollout(sf, si, wa, wb, 0, params, T, uniforms=u,
-                                    return_actions=True),
+                                    return_actions=True, **f32),
          tfa.fused_selfplay_rollout_reference(sf, si, wa, wb, params,
-                                              uniforms=u, return_actions=True)),
-        (ops.fused_selfplay_rollout(sf, si, wa, wb, 42, params, T),
+                                              uniforms=u, return_actions=True,
+                                              **f32)),
+        (ops.fused_selfplay_rollout(sf, si, wa, wb, 42, params, T, **f32),
          tfa.fused_selfplay_rollout_reference(sf, si, wa, wb, params, T,
-                                              seed=42)),
+                                              seed=42, **f32)),
     ]
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["fused_collect"] == before["fused_collect"] + 2
-    assert (ops.LAUNCHES["fused_selfplay_rollout"]
-            == before["fused_selfplay_rollout"] + 2)
+    assert ops.LAUNCHES["fused_collect_f32"] == before["fused_collect_f32"] + 2
+    assert (ops.LAUNCHES["fused_selfplay_rollout_f32"]
+            == before["fused_selfplay_rollout_f32"] + 2)
     for got, want in cases:
         _assert_policy_outputs(got, want)
     obs = cases[0][0][2]
     assert (obs[:, 4 * params.n_bodies + 2:] == 0).all()
+
+
+def _near_ties(kernel_out, plain_out, calls, actions, eps):
+    """Envs whose sampled actions all agree with the plain version's, and
+    the check that each env's first differing sample is a near tie: its
+    uniform within 2 ``eps`` of a boundary of the plain version's CDF
+    (its logits and uniforms, per step and view, in ``calls``). Returns
+    (agreeing envs [B] bool, near-tie count, mismatched samples)."""
+    kd, ka = (kernel_out[i] for i in actions)
+    pd, pa = (plain_out[i] for i in actions)
+    t, _, b = kd.shape
+    n_groups = calls[0][0].shape[0] // 5
+
+    def idx(d, a):                                       # [T, 2, G, B]
+        return torch.stack([((d, a)[g % 2] >> (3 * (g // 2))) & 7
+                            for g in range(n_groups)], 2)
+
+    differ = idx(kd, ka) != idx(pd, pa)
+    bad_step = differ.flatten(1, 2).any(1)
+    bad_env = bad_step.any(0)
+    first = torch.where(bad_env, bad_step.int().argmax(0), t)
+    steps = torch.arange(t, device=kd.device)[:, None]
+    logits = torch.stack([c[0] for c in calls]).reshape(t, 2, n_groups, 5, b)
+    u = torch.stack([c[1] for c in calls]).reshape(t, 2, n_groups, b)
+    cdf = torch.softmax(logits.double(), 3).cumsum(3)[:, :, :, :4]
+    margin = (u.double()[:, :, :, None] - cdf).abs().amin(3)
+    at_first = differ & (steps == first)[:, None, None, :]
+    assert not (at_first & (margin > 2 * eps)).any(), "a differing action is no tie"
+    in_window = (steps <= first)[:, None, None, :]
+    return ~bad_env, int((in_window & (margin <= 2 * eps)).sum()), int(at_first.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params,hidden,n_envs", [
+    (EnvParams(players_per_team=3, max_steps=6), (64, 48), 1000),
+    (CUSTOM, (32, 16), B),
+    (EnvParams(players_per_team=2), (128, 128), B),
+], ids=["3v3-ragged", "custom", "2v2-128"])
+def test_policy_kernels_bf16_match_plain(cuda, params, hidden, n_envs, monkeypatch):
+    """The bfloat16 route (tensor cores) against the plain bfloat16
+    version on the same uniforms, at test_policy_kernels_match_plain's
+    shapes: on the envs whose sampled actions all agree, logp, value and
+    last_value within 1e-2 (the f32 sums in another order, which can
+    move a rounded activation by one bf16 ulp), the env's outputs within
+    1e-5 and integers exact; every differing action a near tie (within
+    twice the measured logp error of a CDF boundary); the near-tie
+    count is reported."""
+    sf, si, w, wa, wb, u = _policy_case(cuda, params, hidden, n_envs)
+    before = dict(ops.LAUNCHES)
+    got2 = ops.fused_collect(sf, si, w, 0, params, T, uniforms=u)
+    got4 = ops.fused_selfplay_rollout(sf, si, wa, wb, 0, params, T, uniforms=u,
+                                      return_actions=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_collect"] == before["fused_collect"] + 1
+    assert (ops.LAUNCHES["fused_selfplay_rollout"]
+            == before["fused_selfplay_rollout"] + 1)
+    calls2, calls4 = [], []
+    sample_with_logp, sample_rows = tfc.sample_with_logp, tfa.sample_rows
+    monkeypatch.setattr(tfc, "sample_with_logp", lambda lg, g, uu: (
+        calls2.append((lg.clone(), uu.clone())), sample_with_logp(lg, g, uu))[1])
+    monkeypatch.setattr(tfa, "sample_rows", lambda lg, g, uu: (
+        calls4.append((lg.clone(), uu.clone())), sample_rows(lg, g, uu))[1])
+    want2 = tfc.fused_collect_reference(sf, si, w, params, uniforms=u)
+    want4 = tfa.fused_selfplay_rollout_reference(sf, si, wa, wb, params,
+                                                 uniforms=u, return_actions=True)
+    # the log-prob error on envs that agree everywhere sets the tie margin
+    agree = (got2[3] == want2[3]).all(0).all(0) & (got2[4] == want2[4]).all(0).all(0)
+    eps = (got2[5][..., agree] - want2[5][..., agree]).abs().max().item()
+    good2, ties2, miss2 = _near_ties(got2, want2, calls2, (3, 4), eps)
+    good4, ties4, miss4 = _near_ties(got4, want4, calls4, (4, 5), eps)
+    print(f"near ties: collect {ties2} ({miss2} mismatched), selfplay {ties4} "
+          f"({miss4} mismatched), logp error {eps:.3g}")
+    for i in (5, 6, 9):                                  # logp, value, last_value
+        torch.testing.assert_close(got2[i][..., good2], want2[i][..., good2],
+                                   rtol=0, atol=1e-2)
+    for got, want, good, env_outs in ((got2, want2, good2, (0, 1, 2, 7, 8)),
+                                      (got4, want4, good4, (0, 1, 2, 3))):
+        for i in env_outs:
+            if got[i].dtype.is_floating_point:
+                torch.testing.assert_close(got[i][..., good], want[i][..., good],
+                                           rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(got[i][..., good], want[i][..., good])
+    assert good2.float().mean() > 0.9 and good4.float().mean() > 0.9
 
 
 @pytest.mark.cuda

@@ -11,7 +11,10 @@ per-step action draws are rebuilt from its key splits
 (``ppo.collect_rollout``, ``vector.rollout`` with ``joint_policy``) and
 handed to the port's plain kernel versions as their uniforms table, at
 zero kick and placement noise (the parameters of tests/test_ops.py:26)
-so the env's own draws do not matter.
+so the env's own draws do not matter. JAX's plain paths compute in f32
+on the CPU, so the port's plain versions run in their float32 mode here;
+their bfloat16 mode is held against JAX in
+tests/test_torch_fused_policy_tc.py.
 
 Tolerances, with their reasons: states pos/vel rtol 1e-4 / atol 1e-3
 and observations rtol 1e-4 / atol 1e-5 (XLA contracts multiply-adds
@@ -186,7 +189,8 @@ def test_collect_matches_jax_collect_rollout():
     sf, si = ops.pack_state(trunner.env_state, params)
     table = _table(P, [d[:, :B] for d in draws], [d[:, B:] for d in draws])
     (sf2, si2, obs, dirs, acts, logp, value, reward, done,
-     last_v) = tfc.fused_collect_reference(sf, si, w, params, uniforms=table)
+     last_v) = tfc.fused_collect_reference(sf, si, w, params, uniforms=table,
+                                           compute_dtype=torch.float32)
 
     f = 4 * P.n_bodies + 2
     jobs = _np(jtraj.obs).reshape(T, 2, B, f).transpose(1, 3, 0, 2)
@@ -302,7 +306,8 @@ def test_selfplay_reference_matches_jax_rollout():
         state_from_numpy(pos, vel, poss, score, t, device="cpu"), params)
     sf2, si2, rew, goals = tfa.fused_selfplay_rollout_reference(
         sf, si, twa, twb, params,
-        uniforms=_table(P, *_jax_selfplay_draws(key, P, T)))
+        uniforms=_table(P, *_jax_selfplay_draws(key, P, T)),
+        compute_dtype=torch.float32)
     # free-running from contact-heavy states: the drift grows over T
     # steps (1.8e-5 measured)
     np.testing.assert_allclose(rew.numpy(), _np(jouts.team_reward[..., 0]),
@@ -331,7 +336,8 @@ def test_evaluate_metrics_match_jax():
         device="cpu"), params)
     _, _, rew, goals = tfa.fused_selfplay_rollout_reference(
         sf, si, twa, twb, params,
-        uniforms=_table(P, *_jax_selfplay_draws(k_roll, P, T)))
+        uniforms=_table(P, *_jax_selfplay_draws(k_roll, P, T)),
+        compute_dtype=torch.float32)
     got = teval._match_metrics(goals, rew.mean(), B)
     assert set(got) == set(want)
     for name in ("goals", "goals_per_episode", "win_rate_a", "win_rate_b",
@@ -433,6 +439,8 @@ def test_cpu_path_never_builds(monkeypatch):
                                          device="cpu"))
     assert ops.LAUNCHES == {"fused_rollout": 0, "fused_rollout_replay": 0,
                             "fused_collect": 0, "fused_selfplay_rollout": 0,
+                            "fused_collect_f32": 0,
+                            "fused_selfplay_rollout_f32": 0,
                             "fused_minibatch_grad": 0,
                             "fused_recurrent_collect": 0}
 
@@ -451,7 +459,7 @@ def test_philox_sampling_statistics():
     obs, dirs, acts = out[2], out[3], out[4]
     f = 4 * params.n_bodies + 2
     x = obs[:, :f].permute(0, 2, 3, 1).reshape(-1, f)      # (view, step, env)
-    logits = tfc._forward(x.T, w)[0].T
+    logits = tfc._forward(x.T, w, torch.bfloat16)[0].T    # the wrapper's mode
     probs = torch.softmax(logits.reshape(-1, 4, 5).double(), -1)
     packed = (dirs.transpose(0, 1).reshape(-1), acts.transpose(0, 1).reshape(-1))
     for gi in range(4):

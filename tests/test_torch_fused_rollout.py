@@ -208,6 +208,8 @@ def test_cpu_path_never_builds(monkeypatch):
     out3 = ops.fused_rollout(sf, si, 4, params, 4)
     assert ops.LAUNCHES == {"fused_rollout": 0, "fused_rollout_replay": 0,
                             "fused_collect": 0, "fused_selfplay_rollout": 0,
+                            "fused_collect_f32": 0,
+                            "fused_selfplay_rollout_f32": 0,
                             "fused_minibatch_grad": 0,
                             "fused_recurrent_collect": 0}
     for x, y in zip(out1, out2):

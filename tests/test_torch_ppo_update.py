@@ -550,6 +550,23 @@ def test_cli_main_cpu(argv):
     assert runner.optimizer.count == 16
 
 
+def test_cli_a2c_rollout_steps_cpu():
+    """``--algo a2c`` without ``--rollout-steps`` resolves T to
+    ``A2CConfig``'s 8. A standing divergence: the reference CLI's
+    ``--rollout-steps`` defaults to 128 (gym_futbol_tpu/train.py:48) and
+    overrides A2CConfig's 8 (gym_futbol_tpu/a2c.py:46) at :107; the port
+    keeps the algorithm's own default, as its help text says."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        runner = ttrain.main(["--device", "cpu", "--algo", "a2c", "--ppt", "2",
+                              "--iters", "1", "--envs", "16", "--hidden", "16",
+                              "--fused-collect"])
+    lines = [json.loads(s) for s in out.getvalue().splitlines()]
+    assert len(lines) == 2 and lines[1]["done"] is True
+    assert lines[1]["total_env_steps"] == 16 * 8
+    assert runner.optimizer.count == 1                 # one full-batch step
+
+
 def test_cli_eval_vs_random_cpu():
     """``--iters 0 --eval-episodes N``: the untrained policy plays N full
     episodes against uniform random play; one eval record, then done."""
