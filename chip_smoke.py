@@ -26,13 +26,22 @@ port's main paths:
   config 4 (fused collect, GAE, 4 epochs x 4 minibatches of 2^20 samples
   on the kernels) and once through the training CLI, then the kernels'
   times beside the CUDA-core chain's and cuBLAS's on the same products;
-- phases 14-16, the recurrent learners (fused_recurrent_collect): the
-  kernel against its plain version in table and Philox modes from
-  non-zero carries (3v3, 16384 envs, hidden (128,), H=128, and other
-  shapes), a teacher-forced check against the RecurrentActorCritic
-  module and sampling statistics, then recurrent PPO through
+- phases 14-16, the recurrent learners (fused_recurrent_collect) in
+  both routes, bfloat16 on the tensor cores (the main path's) and
+  float32 on the CUDA cores (exact): the kernel against its plain
+  version in table and Philox modes from non-zero carries (3v3, 16384
+  envs, hidden (128,), H=128, and other shapes; bf16 within a
+  tolerance, every differing action a counted near tie), teacher-forced
+  checks against the RecurrentActorCritic module (bf16: with rounded
+  operands) and sampling statistics, then recurrent PPO through
   train_iteration_recurrent_ppo at that shape (T=16), one recurrent A2C
-  iteration and the training CLI with --recurrent, then K5's times.
+  iteration and the training CLI with --recurrent, then K5's times in
+  both routes, its layout plan against the other layouts and a cuBLAS
+  yardstick.
+Phase 6 also measures the contact solver's active share (the pairs and
+walls the culled env step updates) at config 3, the 5v5 scale and config
+4, and the env step's operation count, and so every bound that counts
+it, uses that share.
 One line per phase; any failed phase exits nonzero with no result line.
 The last two lines are the kernels' record and ``{"ok": true, "device":
 {...}}``. Each kernel's ``bound_ms`` is the least time the card could
@@ -68,7 +77,7 @@ T_FORCED = 32
 SOURCE = "gym_futbol_tpu_torch/csrc/fused_rollout.cu"
 POLICY_SOURCE = "gym_futbol_tpu_torch/csrc/fused_policy_tc.cu"
 UPDATE_SOURCE = "gym_futbol_tpu_torch/csrc/fused_update.cu"
-RECURRENT_SOURCE = "gym_futbol_tpu_torch/csrc/fused_recurrent.cu"
+RECURRENT_SOURCE = "gym_futbol_tpu_torch/csrc/fused_recurrent_tc.cu"
 REPLACES = {
     "fused_rollout": "gym_futbol_tpu/ops/fused_rollout.py:342",
     "fused_rollout_replay": "gym_futbol_tpu/ops/fused_rollout.py:487",
@@ -80,6 +89,7 @@ REPLACES = {
 # H100 SXM peaks (NVIDIA data sheet, 700 W): memory, float32 on the CUDA
 # cores, dense bfloat16 on the tensor cores.
 HBM_BYTES_PER_S, F32_PER_S, BF16_PER_S = 3.35e12, 67e12, 989e12
+TC_SMEM = 232448      # shared memory a block may use (H100)
 # Kernel against plain version on the same inputs: pos/vel rtol 1e-4 /
 # atol 1e-3, rewards 1e-4 absolute, integer state exact.
 RTOL, ATOL, REW_ATOL = 1e-4, 1e-3, 1e-4
@@ -290,7 +300,7 @@ def rounded_forward(model, x):
     return logits, (h @ layers[-1].weight.T + layers[-1].bias)[:, 0]
 
 
-def policy_phases(dev, custom) -> list[dict]:
+def policy_phases(dev, custom, shares) -> list[dict]:
     """Phases 7-10: the self-play policy kernels (fused_collect,
     fused_selfplay_rollout) against their plain versions, the
     teacher-forced check, sampling statistics and the main path. Returns
@@ -637,18 +647,22 @@ def policy_phases(dev, custom) -> list[dict]:
     def bf16_ops(weights):       # two per multiply-add of the bf16 products
         return sum(2 * w.numel() for w in weights[::2])
 
-    ops_k2 = env_step_ops(p4) + 2 * mlp_ops(w4)
+    ops_k2 = env_step_ops(p4, shares["3v3"]) + 2 * mlp_ops(w4)
     ops_k2_bf16 = 2 * bf16_ops(w4[:-2])
     bytes_k2 = (2 * nbytes(sf4, si4) + nbytes(*w4)
                 + 4 * 2 * B4 * (fc.feature_rows(p4) * T4 + 6 * T4 + 1))
     bound_k2_f32 = bound(bytes_k2 / T4, B4 * ops_k2)
     bound_k2 = bound(bytes_k2 / T4, B4 * (ops_k2 - ops_k2_bf16), B4 * ops_k2_bf16)
-    ops_k4 = env_step_ops(p6) + mlp_ops(wa6) + mlp_ops(wb6)
+    ops_k4 = env_step_ops(p6, shares["2v2"]) + mlp_ops(wa6) + mlp_ops(wb6)
     ops_k4_bf16 = bf16_ops(wa6) + bf16_ops(wb6)
     bytes_k4 = (2 * nbytes(sf6, si6) + nbytes(*wa6, *wb6)
                 + 4 * B6 * (T6 + 2))
     bound_k4_f32 = bound(bytes_k4 / T6, B6 * ops_k4)
     bound_k4 = bound(bytes_k4 / T6, B6 * (ops_k4 - ops_k4_bf16), B6 * ops_k4_bf16)
+    phase("10 bound", f"the env step at the active shares: {env_step_ops(p4, shares['3v3'])}"
+          f" operations at 3v3 (every constraint {env_step_ops(p4)}), "
+          f"{env_step_ops(p6, shares['2v2'])} at 2v2 (every constraint "
+          f"{env_step_ops(p6)})")
     phase("10 bound", f"fused_collect: {ops_k2} operations per env-step, of them "
           f"{ops_k2_bf16} bf16 products -> bfloat16 {bound_k2[0]:.6g} ms/step "
           f"({bound_k2[1]}), float32 {bound_k2_f32[0]:.6g} ({bound_k2_f32[1]}); "
@@ -1018,11 +1032,43 @@ def update_phases(dev, custom) -> dict:
                     f"samples (3v3, hidden {H4})"}
 
 
-def recurrent_phases(dev, custom) -> dict:
-    """Phases 14-16: fused_recurrent_collect against its plain version,
-    the teacher-forced check and sampling statistics, the recurrent
-    learners' main path (recurrent PPO and A2C, the CLI) and K5's times.
-    Returns K5's entry of the kernels line."""
+def rounded_unroll(model, carry, x, done):
+    """RecurrentActorCritic.unroll with the operands of the torso's, the
+    cell's and the logits head's products rounded to bf16 (f32 sums by
+    cuBLAS, the cell's input and recurrent products apart), the gates, the
+    carries and the value head f32: what the bf16 route computes.
+    (carry after the window, (logits, value))."""
+    import torch
+
+    from gym_futbol_tpu_torch.models.recurrent import lstm_cell
+
+    def rnd(a):
+        return a.to(torch.bfloat16).float()
+
+    t = x
+    for layer in model.torso:
+        t = torch.tanh(rnd(t) @ rnd(layer.weight).T + layer.bias)
+    x_in = rnd(t) @ rnd(model.cell_i.weight).T
+    wh, bh = rnd(model.cell_h.weight), model.cell_h.bias
+    keep = (1.0 - done.float())[..., None]
+    c, h = carry
+    hs = []
+    for x_t, keep_t in zip(x_in.unbind(0), keep):
+        c, h = lstm_cell(rnd(h) @ wh.T + bh + x_t, c)
+        hs.append(h)
+        c, h = c * keep_t, h * keep_t
+    hs = torch.stack(hs)
+    logits = rnd(hs) @ rnd(model.logits.weight).T + model.logits.bias
+    value = (hs @ model.value.weight.T + model.value.bias)[..., 0]
+    return (c, h), (logits, value)
+
+
+def recurrent_phases(dev, custom, shares) -> dict:
+    """Phases 14-16: fused_recurrent_collect in both routes against its
+    plain version, the teacher-forced checks and sampling statistics, the
+    recurrent learners' main path (recurrent PPO and A2C, the CLI, on the
+    bf16 route) and K5's times, layouts and bounds. Returns K5's entry of
+    the kernels line."""
     import torch
 
     from gym_futbol_tpu_torch import EnvParams, a2c, obs_size, ops, vector
@@ -1035,6 +1081,8 @@ def recurrent_phases(dev, custom) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     p3, p2 = EnvParams(players_per_team=3), EnvParams(players_per_team=2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    k5_actions, k5_floats, k5_env = (3, 4), (5, 6, 9, 10, 11), (0, 1, 2, 7, 8)
 
     def setup(params, hidden, lstm, n_envs, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1045,9 +1093,22 @@ def recurrent_phases(dev, custom) -> dict:
                    for _ in range(2)]
         return (*ops.pack_state(state, params), model, carries, gen)
 
+    def plain_bf16(*args, **kw):
+        """The plain bf16 version, its sampler's (logits, uniforms)
+        recorded for the near-tie test."""
+        calls = []
+        orig = recording(fr, "sample_with_logp", calls)
+        try:
+            return fr.fused_recurrent_collect_reference(*args, **kw), calls
+        finally:
+            fr.sample_with_logp = orig
+
     # 14: kernel vs plain version from non-zero carries, same uniforms and
-    # Philox; the plain version runs T=4 at the main shape
-    k5_err = 0.0
+    # Philox, in both routes: float32 bitwise, bfloat16 within the bf16
+    # tolerances with every differing action a counted near tie. The
+    # plain version runs T=4 at the main shape; the kernels line takes
+    # the bf16 error there
+    k5_err, k5_f32_err, ties = 0.0, 0.0, []
     for label, params, hidden, lstm, n_envs, n_steps, philox, main in (
             (f"3v3 {HR} H={LSTM_R}", p3, HR, LSTM_R, BR, 4, True, True),
             ("2v2 (128,) H=128", p2, (128,), 128, B6, T_PARITY, True, False),
@@ -1061,50 +1122,75 @@ def recurrent_phases(dev, custom) -> dict:
                        device=dev)
         tag = f"14 {label} B={n_envs} T={n_steps}"
         got = ops.fused_recurrent_collect(sf, si, w, cc, hh, 0, params, n_steps,
-                                          uniforms=u)
+                                          uniforms=u, compute_dtype=f32)
         errs = [compare_policy(got, fr.fused_recurrent_collect_reference(
-            sf, si, w, cc, hh, params, uniforms=u), f"{tag}, table", (3, 4))]
+            sf, si, w, cc, hh, params, uniforms=u, compute_dtype=f32),
+            f"{tag}, table, float32", k5_actions)]
         if philox:
             errs.append(compare_policy(
-                ops.fused_recurrent_collect(sf, si, w, cc, hh, 5, params, n_steps),
+                ops.fused_recurrent_collect(sf, si, w, cc, hh, 5, params, n_steps,
+                                            compute_dtype=f32),
                 fr.fused_recurrent_collect_reference(sf, si, w, cc, hh, params,
-                                                     n_steps, seed=5),
-                f"{tag}, Philox", (3, 4)))
+                                                     n_steps, seed=5, compute_dtype=f32),
+                f"{tag}, Philox, float32", k5_actions))
+        k5_f32_err = max(k5_f32_err, *errs)
+        modes = [("table", dict(uniforms=u), 0, dict(uniforms=u))]
+        if philox:
+            modes.append(("Philox", {}, 5, dict(seed=5)))
+        for mode, kw, seed, plain_kw in modes:
+            got_bf = ops.fused_recurrent_collect(sf, si, w, cc, hh, seed, params,
+                                                 n_steps, **kw)
+            want, calls = plain_bf16(sf, si, w, cc, hh, params, n_steps, **plain_kw)
+            err, _, counts = compare_policy_bf16(
+                got_bf, want, calls, f"{tag}, {mode}, bfloat16", k5_actions,
+                k5_floats, k5_env)
+            ties.append(counts)
+            if main:
+                k5_err = max(k5_err, err)
         check(torch.equal(cc, c0) and torch.equal(hh, h0),
               f"{tag}: the input carries changed")
         if params.max_steps <= n_steps:
             check(bool(got[8].any()), f"{tag}: no episode ended in the window")
-        if main:
-            k5_err = max(errs)
+    total = {k: sum(c[k] for c in ties) for k in ties[0]}
+    phase("14 near ties", f"fused_recurrent_collect bf16, every case: {total}")
 
     # 14: teacher-forced at the main shape (episodes ending in the window):
-    # the module replayed over the kernel's own obs from its initial carry
+    # the module replayed over the kernel's own obs from its initial carry;
+    # float32 against the module (5e-5), bfloat16 against the module's
+    # unroll with rounded operands (1e-2)
     pf = p3.replace(max_steps=12)
     sf, si, model, (cc, hh), gen = setup(pf, HR, LSTM_R, BR, 8)
     w = fr.flatten_recurrent_actor_critic(model)
-    (_, _, obs, dirs, acts, logp, value, _, done, _, cc2,
-     hh2) = ops.fused_recurrent_collect(sf, si, w, cc, hh, 78, pf, TR)
     f = obs_size(pf)
-    x = obs[:, :f].permute(2, 0, 3, 1).reshape(TR, 2 * BR, f)    # [T, 2B, F]
 
     def flat(a):                                        # [T, 2, B] -> [T, 2B]
         return a.reshape(TR, 2 * BR)
 
     carry0 = tuple(c.transpose(1, 2).reshape(2 * BR, LSTM_R) for c in (cc, hh))
-    with torch.no_grad():
-        (c_end, h_end), (logits, v) = model.unroll(carry0, x, flat(done).bool())
-        lp, _ = action_log_prob_and_entropy_packed(logits, flat(dirs), flat(acts))
-    errs = {"logp": (lp - flat(logp)).abs().max().item(),
-            "value": (v - flat(value)).abs().max().item(),
-            "carry": max((a - b.transpose(1, 2).reshape(2 * BR, LSTM_R)).abs().max()
-                         .item() for a, b in ((c_end, cc2), (h_end, hh2)))}
-    n_ends = int(done.sum()) // 2
-    phase("14 forced", f"3v3 max_steps 12 B={BR} T={TR} H={LSTM_R}, Philox, module "
-          f"replay (TF32 off): " + ", ".join(f"{k} err {e:.3g}" for k, e in errs.items())
-          + f" (<= {K5_FORCED_ATOL}); {n_ends} episode ends")
-    check(max(errs.values()) <= K5_FORCED_ATOL and n_ends > 0, "14: module replay")
+    for mode, unroll, tol in (("float32", model.unroll, K5_FORCED_ATOL),
+                              ("bfloat16", functools.partial(rounded_unroll, model),
+                               FORCED_BF16_ATOL)):
+        (_, _, obs, dirs, acts, logp, value, _, done, _, cc2,
+         hh2) = ops.fused_recurrent_collect(sf, si, w, cc, hh, 78, pf, TR,
+                                            compute_dtype=f32 if mode == "float32"
+                                            else bf16)
+        x = obs[:, :f].permute(2, 0, 3, 1).reshape(TR, 2 * BR, f)    # [T, 2B, F]
+        with torch.no_grad():
+            (c_end, h_end), (logits, v) = unroll(carry0, x, flat(done).bool())
+            lp, _ = action_log_prob_and_entropy_packed(logits, flat(dirs), flat(acts))
+        errs = {"logp": (lp - flat(logp)).abs().max().item(),
+                "value": (v - flat(value)).abs().max().item(),
+                "carry": max((a - b.transpose(1, 2).reshape(2 * BR, LSTM_R)).abs()
+                             .max().item() for a, b in ((c_end, cc2), (h_end, hh2)))}
+        n_ends = int(done.sum()) // 2
+        phase("14 forced", f"3v3 max_steps 12 B={BR} T={TR} H={LSTM_R}, Philox, "
+              f"{mode}, module replay (TF32 off{', rounded operands' if mode == 'bfloat16' else ''}): "
+              + ", ".join(f"{k} err {e:.3g}" for k, e in errs.items())
+              + f" (<= {tol}); {n_ends} episode ends")
+        check(max(errs.values()) <= tol and n_ends > 0, f"14: module replay, {mode}")
 
-    # 14: sampling statistics of the same collect against its own softmax
+    # 14: sampling statistics of the bf16 collect (the main path's) against
+    # its own softmax (the logits of the last replay)
     n_groups = 2 * pf.players_per_team
     probs = torch.softmax(logits.double().reshape(-1, n_groups, 5), -1)
     packed = (flat(dirs).reshape(-1), flat(acts).reshape(-1))
@@ -1115,12 +1201,12 @@ def recurrent_phases(dev, custom) -> dict:
         pg = probs[:, g]
         se = (pg * (1 - pg)).sum(0).sqrt() / pg.shape[0]
         z = max(z, ((onehot.mean(0) - pg.mean(0)).abs() / se).max().item())
-    phase("14 stats", f"recurrent collect: {probs.shape[0]} samples x {n_groups} "
-          f"groups, max |freq - p| / SE {z:.3f} (<= 5)")
+    phase("14 stats", f"recurrent collect, bfloat16: {probs.shape[0]} samples x "
+          f"{n_groups} groups, max |freq - p| / SE {z:.3f} (<= 5)")
     check(z <= 5.0, "14: sampling statistics")
 
-    # 15: the main path: recurrent PPO at the main shape on the kernel,
-    # then one recurrent A2C iteration
+    # 15: the main path: recurrent PPO at the main shape on the kernel (the
+    # collect's default route, bfloat16), then one recurrent A2C iteration
     ops.reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     model = RecurrentActorCritic(3, obs_size(p3), HR, LSTM_R, device=dev)
@@ -1164,14 +1250,14 @@ def recurrent_phases(dev, custom) -> dict:
     check(all(not torch.equal(a, b) for a, b in zip(first, model.parameters())),
           "15: a parameter did not change")
     check(sum(ops.LAUNCHES.values()) == ops.LAUNCHES["fused_recurrent_collect"],
-          "15: another kernel ran in the recurrent path")
+          "15: another kernel (or K5's float32 route) ran in the recurrent path")
     phase("15 main path", f"train_iteration_recurrent_ppo (collect_recurrent_rollout_"
-          f"fused, compute_gae, update_epochs_recurrent), 3v3 B={BR} T={TR} hidden "
-          f"{HR} H={LSTM_R}, {cfg.epochs} x {cfg.minibatches} minibatches of "
-          f"{2 * BR // cfg.minibatches} sequences: {ms:.3f} ms/iteration, "
-          f"{BR * TR / ms * 1e3:.6g} env-steps/s ({n_iters} iterations after 1 "
-          f"warm-up); collect {ms_collect:.3f} ms, update {ms_update:.3f} ms, "
-          f"GAE and the rest {ms - ms_collect - ms_update:.3f} ms")
+          f"fused, bfloat16, compute_gae, update_epochs_recurrent), 3v3 B={BR} "
+          f"T={TR} hidden {HR} H={LSTM_R}, {cfg.epochs} x {cfg.minibatches} "
+          f"minibatches of {2 * BR // cfg.minibatches} sequences: {ms:.3f} "
+          f"ms/iteration, {BR * TR / ms * 1e3:.6g} env-steps/s ({n_iters} "
+          f"iterations after 1 warm-up); collect {ms_collect:.3f} ms, update "
+          f"{ms_update:.3f} ms, GAE and the rest {ms - ms_collect - ms_update:.3f} ms")
     phase("15 main path", "metrics per iteration: " + "; ".join(
         f"{k} " + " ".join(f"{v:.5g}" for v in vs) for k, vs in values.items()))
     a2c_model = RecurrentActorCritic(3, obs_size(p3), HR, LSTM_R, device=dev)
@@ -1185,10 +1271,14 @@ def recurrent_phases(dev, custom) -> dict:
           f"step), 3v3 B={BR} T={TR}: first iteration {1e3 * (time.perf_counter() - t0):.1f}"
           f" ms wall; " + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
     check(all(math.isfinite(v) for v in m.values()), "15: A2C metrics")
-    launches = ops.LAUNCHES["fused_recurrent_collect"]
-    check(launches == n_iters + 2, f"15: {launches} K5 launches in the main path")
-    phase("15 main path", f"kernel launches in the main path: "
-          f"{{'fused_recurrent_collect': {launches}}}")
+    launches = {k: ops.LAUNCHES[k] for k in ("fused_recurrent_collect",
+                                             "fused_recurrent_collect_f32")}
+    check(launches["fused_recurrent_collect"] == n_iters + 2
+          and launches["fused_recurrent_collect_f32"] == 0,
+          f"15: {launches} K5 launches in the main path")
+    phase("15 main path", f"kernel launches in the main path (bfloat16 "
+          f"recurrent_tc_kernel under the kernel's name, float32 under _f32): "
+          f"{launches}")
 
     argv = ["--recurrent", "--fused-collect", "--ppt", "3", "--envs", str(BR),
             "--hidden", *map(str, HR), "--lstm-size", str(LSTM_R), "--iters", "2"]
@@ -1204,34 +1294,93 @@ def recurrent_phases(dev, custom) -> dict:
     check(len(records) == 3 and records[2].get("total_env_steps") == 2 * BR * TR,
           "15: the CLI's records (T must resolve to 16)")
 
-    # 16: K5 alone at the main shape, the plain version, the bound
+    # 16: K5 alone at the main shape in both routes, in turns; the plan and
+    # the other layouts it weighs; the env step alone; the plain version;
+    # the bounds; a cuBLAS yardstick
     sf, si = ops.pack_state(runner.env_state, p3)
     cc, hh = (c.transpose(1, 2).contiguous() for c in runner.carry)
     w = fr.flatten_recurrent_actor_critic(model)
-    ms_k5 = time_cuda(lambda i: ops.fused_recurrent_collect(
-        sf, si, w, cc, hh, 700 + i, p3, TR), 5)
+
+    def k5(mode):
+        return lambda i: ops.fused_recurrent_collect(sf, si, w, cc, hh, 700 + i, p3,
+                                                     TR, compute_dtype=mode)
+
+    k5(bf16)(0)
+    ms_k5, ms_k5_f32, ms_k5_f32_again, ms_k5_again = (
+        time_cuda(k5(mode), 5) / TR for mode in (bf16, f32, f32, bf16))
+    plan = fr.recurrent_tc_plan(p3, HR, LSTM_R, BR)
+    phase("16 plan", f"fused_recurrent_collect 3v3 B={BR} hidden {HR} H={LSTM_R}: {plan}")
+    plan_fn, layouts = fr.recurrent_tc_plan, {}
+    units, tiles = plan["frag_bytes"] // 16, sum(plan["t_bytes"])
+    torso_head = (plan["frag_bytes"] - 2 * (HR[-1] + LSTM_R) * 4 * LSTM_R) // 16
+    for envs, per_sm, n_res in ((128, 1, torso_head), (128, 1, 0), (64, 1, None),
+                                (64, 2, None), (32, 2, None)):
+        if n_res is None:
+            n_res = min(units, (TC_SMEM // per_sm - envs // 32 * tiles) // 16)
+        forced = dict(plan, envs=envs, n_res=n_res, blocks=-(-BR // envs),
+                      smem=16 * n_res + envs // 32 * tiles)
+        fr.recurrent_tc_plan = lambda *a, forced=forced, **kw: forced
+        try:
+            layouts[f"{envs} envs, {16 * n_res} bytes resident"] = (
+                time_cuda(k5(bf16), 3) / TR)
+        finally:
+            fr.recurrent_tc_plan = plan_fn
+    phase("16 plan", "other layouts, ms/step (the plan's: the bfloat16 times "
+          "below): " + "; ".join(f"{k} {v:.5f}" for k, v in layouts.items()))
+    ms_env = time_cuda(lambda i: ops.fused_rollout(sf, si, 800 + i, p3, TR), 5) / TR
     t_plain = 2
     fr.fused_recurrent_collect_reference(sf, si, w, cc, hh, p3, 1, seed=0)
     plain_k5 = time_cuda(lambda i: fr.fused_recurrent_collect_reference(
         sf, si, w, cc, hh, p3, t_plain, seed=1 + i), 1) / t_plain
     # bound per step: state, weights and input carries read, state and
     # output carries written once per call; obs, the six [T, 2, B] rows
-    # and the bootstrap values written once. Operations: the env step and
-    # both views' torso, cell ([t; h] x [n_t + H, 4H]) and heads
+    # and the bootstrap values written once. Operations: the env step at
+    # config 4's active share and both views' torso, cell ([t; h] x [n_t +
+    # H, 4H]) and heads; in bfloat16 the torso's, the cell's and the logits
+    # head's products on the tensor cores, the biases and value head f32
     n_torso = len(HR)
     wi, wh, bh, wl, bl, wv, bv = w[2 * n_torso:]
     layers = (*w[:2 * n_torso], torch.cat([wi, wh]), bh, wl, bl, wv, bv)
-    ops_k5 = env_step_ops(p3) + 2 * mlp_ops(layers)
+    ops_k5 = env_step_ops(p3, shares["3v3"]) + 2 * mlp_ops(layers)
+    ops_k5_bf16 = 2 * sum(2 * x.numel() for x in (*w[:2 * n_torso:2], wi, wh, wl))
     f_pad = -(-obs_size(p3) // 8) * 8
     bytes_k5 = (2 * nbytes(sf, si) + nbytes(*w) + 4 * nbytes(cc)
                 + 4 * 2 * BR * (f_pad * TR + 6 * TR + 1))
-    bound_k5 = bound(bytes_k5 / TR, BR * ops_k5)
-    phase("16 kernels", f"fused_recurrent_collect 3v3 B={BR} T={TR}: {ms_k5:.3f} ms "
-          f"({ms_k5 / TR:.5f} ms/step); plain version {plain_k5:.1f} ms/step; "
-          f"{ops_k5} operations per env-step -> bound {bound_k5[0]:.6g} ms/step "
-          f"({bound_k5[1]})")
+    bound_k5 = bound(bytes_k5 / TR, BR * (ops_k5 - ops_k5_bf16), BR * ops_k5_bf16)
+    bound_k5_f32 = bound(bytes_k5 / TR, BR * ops_k5)
+    bound_k5_all = bound(bytes_k5 / TR, BR * (ops_k5 - ops_k5_bf16
+                                              - env_step_ops(p3, shares["3v3"])
+                                              + env_step_ops(p3)),
+                         BR * ops_k5_bf16)
+    phase("16 kernels", f"fused_recurrent_collect 3v3 B={BR} T={TR}, ms/step: "
+          f"bfloat16 on the tensor cores (recurrent_tc_kernel) {ms_k5:.5f} (again "
+          f"after float32: {ms_k5_again:.5f}), float32 on the CUDA cores "
+          f"(recurrent_kernel) {ms_k5_f32:.5f} (again {ms_k5_f32_again:.5f}); the "
+          f"env step alone (fused_rollout) {ms_env:.5f}; plain version (bf16) "
+          f"{plain_k5:.1f}")
+    phase("16 bound", f"fused_recurrent_collect: {ops_k5} operations per env-step "
+          f"at config 4's active share, of them {ops_k5_bf16} bf16 products -> "
+          f"bfloat16 {bound_k5[0]:.6g} ms/step ({bound_k5[1]}), float32 "
+          f"{bound_k5_f32[0]:.6g} ({bound_k5_f32[1]}); with every constraint: "
+          f"bfloat16 {bound_k5_all[0]:.6g}")
+    # yardstick, never called by the port: cuBLAS (torch.matmul, bf16) on
+    # the same per-step products of both views (torso, cell, logits head)
+    xs = [torch.randn(2 * BR, d, device=dev, dtype=bf16)
+          for d in (obs_size(p3), HR[-1] + LSTM_R, LSTM_R)]
+    ms_ = [w[0].to(bf16), torch.cat([wi, wh]).to(bf16), wl.to(bf16)]
+
+    def products(i):
+        for x, m in zip(xs, ms_):
+            torch.matmul(x, m)
+
+    products(0)
+    ms_cublas = time_cuda(products, 20)
+    phase("16 kernels", f"yardstick: cuBLAS (torch.matmul, bf16) on the same "
+          f"per-step products of both views: {ms_cublas:.5f} ms/step "
+          f"({BR * ops_k5_bf16 / ms_cublas / 1e9:.4g} TFLOP/s), 20 iterations")
+    del xs
     for line in ptxas_summary(_build_log()):
-        if line.startswith("recurrent_kernel"):
+        if line.startswith(("recurrent_kernel", "recurrent_tc_kernel")):
             phase("16 kernels", line)
     box = {"runner": runner}
 
@@ -1243,12 +1392,17 @@ def recurrent_phases(dev, custom) -> dict:
           f"{wall_ms:.3f} ms wall, device busy share {busy:.4f}; device ms by "
           f"kernel: " + "; ".join(f"{name} {n}x {ms:.3f}" for name, n, ms in rows[:12]))
     return {"name": "fused_recurrent_collect", "route": "cuda",
+            "kernel": "recurrent_tc_kernel (bfloat16 operands, tensor cores)",
             "source": RECURRENT_SOURCE,
-            "replaces": REPLACES["fused_recurrent_collect"], "launches": launches,
-            "max_abs_err": k5_err, "ms": ms_k5 / TR, "plain_ms": plain_k5,
+            "replaces": REPLACES["fused_recurrent_collect"],
+            "launches": launches["fused_recurrent_collect"],
+            "max_abs_err": k5_err, "ms": ms_k5, "plain_ms": plain_k5,
             "bound_ms": bound_k5[0], "bound_by": bound_k5[1], "library_ms": None,
+            "yardstick_ms": ms_cublas,
+            "f32_route_ms": ms_k5_f32, "f32_bound_ms": bound_k5_f32[0],
+            "f32_max_abs_err": k5_f32_err,
             "unit": f"ms per step of the {BR}-env 3v3 batch, hidden {HR}, "
-                    f"H {LSTM_R}"}
+                    f"H {LSTM_R}, bfloat16"}
 
 
 def device_profile(fn):
@@ -1297,17 +1451,72 @@ def bound(n_bytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def env_step_ops(params) -> int:
+def env_step_ops(params, shares=None) -> int:
     """Floating-point operations of one env step, counted by hand from
-    csrc/futbol_step.cuh: per solver iteration 40 per body pair (normal
-    and friction impulses) and 11 per body and wall (4 walls); per
+    csrc/futbol_step.cuh: per solver iteration 40 per body pair update
+    (normal and friction impulses) and 11 per (wall, body) update; per
     substep 20 per pair (contact set-up) and 40 per body (wall set-up,
-    integration). The rules, rewards and draws are left out, so the
-    bound stays below the true one."""
+    integration). Without ``shares`` every pair and wall is updated; with
+    them (active_shares) only the mean number active per env and substep
+    on this run's data, the work these inputs need (an inactive update is
+    a no-op the kernels skip). The rules, rewards and draws are left out,
+    so the bound stays below the true one."""
     nb = 2 * params.players_per_team + 1
     pairs = nb * (nb - 1) // 2
-    return params.substeps * (params.solver_iterations * (40 * pairs + 44 * nb)
-                              + 20 * pairs + 40 * nb)
+    upd_pairs, upd_walls = ((pairs, 4 * nb) if shares is None
+                            else (shares["pairs_env"], shares["walls_env"]))
+    return round(params.substeps * (params.solver_iterations
+                                    * (40 * upd_pairs + 11 * upd_walls)
+                                    + 20 * pairs + 40 * nb))
+
+
+def active_shares(params, sf, si, n_steps: int, seed: int) -> dict:
+    """The contact solver's active share on a state, measured with the
+    plain version on the card (fused_rollout_reference, ``n_steps``
+    random-policy steps, Philox ``seed``) by wrapping its activity tests
+    (physics._pair_active, _wall_active): per substep, the mean number of
+    active pairs and (wall, body) constraints per env, and per group of 32
+    consecutive envs (a warp of the kernels) the mean number active in any
+    env of the group, which is what the culled kernels run."""
+    import torch
+
+    from gym_futbol_tpu_torch import physics
+    from gym_futbol_tpu_torch.ops.fused_rollout import fused_rollout_reference
+
+    masks = {"pairs": [], "walls": []}
+    orig = (physics._pair_active, physics._wall_active)
+
+    def wrap(fn, key):
+        def active(x):
+            on = fn(x)
+            masks[key].append(on)
+            return on
+        return active
+
+    physics._pair_active = wrap(orig[0], "pairs")
+    physics._wall_active = wrap(orig[1], "walls")
+    try:
+        fused_rollout_reference(sf, si, params, n_steps, seed=seed)
+    finally:
+        physics._pair_active, physics._wall_active = orig
+    nb = params.n_bodies
+    per = {"pairs": nb * (nb - 1) // 2, "walls": 4 * nb}
+    out = {"n_pairs": per["pairs"], "n_walls": per["walls"]}
+    for key, n in per.items():
+        m = torch.stack(masks[key])                       # [substeps * n, B]
+        substeps = m.shape[0] // n
+        b = m.shape[1]
+        warp = torch.nn.functional.pad(m, (0, (-b) % 32)).reshape(
+            m.shape[0], -1, 32).any(2)
+        out[f"{key}_env"] = m.double().sum().item() / (substeps * b)
+        out[f"{key}_warp"] = warp.double().sum().item() / (substeps * warp.shape[1])
+    return out
+
+
+def shares_text(sh: dict) -> str:
+    return (f"per env and substep {sh['pairs_env']:.4g} of {sh['n_pairs']} pairs, "
+            f"{sh['walls_env']:.4g} of {sh['n_walls']} walls active; union over each "
+            f"warp's 32 envs {sh['pairs_warp']:.4g} pairs, {sh['walls_warp']:.4g} walls")
 
 
 def mlp_ops(weights) -> int:
@@ -1535,19 +1744,41 @@ def main() -> int:
         lambda i: fused_rollout_reference(sf, si, p3, actions=acts4), 2)
     phase("6 plain", f"2v2 B={B3} T={t_plain}: {plain_ms:.1f} ms/rollout, "
           f"{B3 * t_plain / plain_ms * 1e3:.6g} env-steps/s")
+    # the contact solver's active share on game states of each main path's
+    # scale (the work the culled kernels' inputs need): config 3's and the
+    # 5v5 rollout's states from above, config 4's after 128 random steps
+    p4 = EnvParams(players_per_team=3)
+    st4, _ = vector.reset_batch(gen, p4, 16384, device=dev)
+    sf4, si4 = ops.pack_state(st4, p4)
+    sf4, si4, _ = ops.fused_rollout(sf4, si4, 400, p4, 128)
+    shares = {}
+    for key, label, params, a, b in (
+            ("2v2", f"config 3 2v2 B={B3}", p3, sf, si),
+            ("5v5", f"5v5 B={B5}", p5, sf5, si5),
+            ("3v3", "config 4 3v3 B=16384 (random play)", p4, sf4, si4)):
+        shares[key] = active_shares(params, a, b, 2, 900)
+        phase("6 active", f"{label}, plain version over 2 steps: "
+              f"{shares_text(shares[key])}")
     # bounds per step: the state read and written once per call, rewards
-    # (and the replayed actions) once; the env step's operations
-    ops_k1 = env_step_ops(p3)
+    # (and the replayed actions) once; the env step's operations on this
+    # run's active share (every constraint's count beside it)
+    ops_k1 = env_step_ops(p3, shares["2v2"])
     bound_k1 = bound((2 * nbytes(sf, si)) / T3 + B3 * 4, B3 * ops_k1)
     bound_k1b = bound((2 * nbytes(sf, si) + nbytes(acts)) / T_PARITY + B3 * 4,
                       B3 * ops_k1)
+    bound_k1_all = bound((2 * nbytes(sf, si)) / T3 + B3 * 4, B3 * env_step_ops(p3))
+    ops_k1_5 = env_step_ops(p5, shares["5v5"])
+    bound_k1_5 = bound((2 * nbytes(sf5, si5)) / T5 + B5 * 4, B5 * ops_k1_5)
     phase("6 bound", f"fused_rollout and replay: {ops_k1} operations per "
-          f"env-step -> {bound_k1[0]:.6g} / {bound_k1b[0]:.6g} ms/step "
-          f"({bound_k1[1]} / {bound_k1b[1]})")
+          f"env-step at config 3's active share -> {bound_k1[0]:.6g} / "
+          f"{bound_k1b[0]:.6g} ms/step ({bound_k1[1]} / {bound_k1b[1]}); every "
+          f"constraint: {env_step_ops(p3)} -> {bound_k1_all[0]:.6g}; 5v5: "
+          f"{ops_k1_5} (every constraint {env_step_ops(p5)}) -> "
+          f"{bound_k1_5[0]:.6g} ms/step")
 
-    policy_record = policy_phases(dev, custom)
+    policy_record = policy_phases(dev, custom, shares)
     update_record = update_phases(dev, custom)
-    recurrent_record = recurrent_phases(dev, custom)
+    recurrent_record = recurrent_phases(dev, custom, shares)
 
     per_step = f"ms per step of the {B3}-env 2v2 batch"
     record = {"kernels": [

@@ -253,16 +253,19 @@ def collect_recurrent_rollout(
 @torch.no_grad()
 def collect_recurrent_rollout_fused(
     runner: RecurrentRunnerState, env_params: EnvParams, cfg,
-    uniforms: torch.Tensor | None = None,
+    uniforms: torch.Tensor | None = None, compute_dtype=torch.bfloat16,
 ) -> tuple[RecurrentRunnerState, Transition, torch.Tensor]:
     """:func:`collect_recurrent_rollout` on the fused kernel: both views'
     forward with their carries, sampling, the env step, auto-reset and
     the carry resets for all T steps in one launch on a CUDA device (its
     plain version on the CPU). The sampling seed is drawn from the
     runner's generator; ``uniforms`` ``[T, n_draws, B]`` replaces the
-    kernel's Philox stream. The kernel's obs ``[2, F_pad, T, B]`` become
-    the ``[T, 2B, F]`` the BPTT loss steps through; carries cross as
-    ``[2, H, B]``. Returns (runner, traj, bootstrap value ``[2B]``)."""
+    kernel's Philox stream. ``compute_dtype``: bfloat16 (the main path,
+    the tensor-core kernel) or float32 (exact), as
+    :func:`~gym_futbol_tpu_torch.ops.fused_recurrent.fused_recurrent_collect`
+    takes it. The kernel's obs ``[2, F_pad, T, B]`` become the ``[T, 2B,
+    F]`` the BPTT loss steps through; carries cross as ``[2, H, B]``.
+    Returns (runner, traj, bootstrap value ``[2B]``)."""
     from .ops import pack_state, unpack_state
     from .ops.fused_recurrent import (
         flatten_recurrent_actor_critic,
@@ -277,7 +280,7 @@ def collect_recurrent_rollout_fused(
     (sf, si, obs, dirs, acts, logp, value, reward, done, last_v, cc,
      hh) = fused_recurrent_collect(
         sf, si, flatten_recurrent_actor_critic(runner.model), cc, hh, seed,
-        env_params, cfg.rollout_steps, uniforms=uniforms)
+        env_params, cfg.rollout_steps, uniforms=uniforms, compute_dtype=compute_dtype)
     t, b = cfg.rollout_steps, sf.shape[1]
     f = env_core.obs_size(env_params)
     traj = Transition(

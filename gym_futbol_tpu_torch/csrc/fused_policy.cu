@@ -58,7 +58,7 @@
 // uniforms of the kick angle, kickoff x per body, kickoff y per body.
 //
 // The device helpers shared with fused_recurrent.cu (dense, build_obs,
-// sample_groups, joint_action, pack, env_noise) are in policy_common.cuh.
+// sample_groups, joint_action, pack) are in policy_common.cuh.
 //
 // C interface for ctypes; each entry point returns cudaGetLastError().
 
@@ -129,27 +129,25 @@ __device__ __forceinline__ void collect_block(float* smem, int rows,
     __syncthreads();
     const float* y = mlp_forward(w, m, col, warp);
     if (owner) {
-      lp[0] = sample_groups<G>(y, table, seed, ND, B, step, b, 0, ia);
+      lp[0] = sample_groups<G, 0>(y, table, seed, ND, B, step, b, ia);
       val[0] = y[G * kChoices * kBlock];
       build_obs<NB, true>(e, oc, col.a, o0 + f_pad * row_stride, row_stride, f_pad);
     }
     __syncthreads();
     y = mlp_forward(w, m, col, warp);
     if (owner) {
-      lp[1] = sample_groups<G>(y, table, seed, ND, B, step, b, G, ib);
+      lp[1] = sample_groups<G, G>(y, table, seed, ND, B, step, b, ib);
       val[1] = y[G * kChoices * kBlock];
       int dp[2], ap[2];
       pack<G>(ia, dp[0], ap[0]);
       pack<G>(ib, dp[1], ap[1]);
       int dirs[NPL], acts[NPL];
       joint_action<NPL>(ia, ib, dirs, acts);
-      float nzx[NB], nzy[NB];
-      const float theta =
-          env_noise<NB>(table, seed, ND, B, step, b, c.kick_noise, nzx, nzy);
+      const EnvDraws<NB> draws{table, seed, ND, B, step, b, c.kick_noise};
       bool goal0, goal1;
       float r[2];
-      r[0] = step_dynamics<NB>(e, dirs, acts, theta, c, k, goal0, goal1, r[1]);
-      const int done = step_finish<NB>(e, goal0, goal1, nzx, nzy, c, k) ? 1 : 0;
+      r[0] = step_dynamics<NB>(e, dirs, acts, draws, c, k, goal0, goal1, r[1]);
+      const int done = step_finish<NB>(e, goal0, goal1, draws, c, k) ? 1 : 0;
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
         const size_t i = (static_cast<size_t>(step) * 2 + v) * B + b;
@@ -215,13 +213,13 @@ __device__ __forceinline__ void selfplay_block(float* smem, int rows,
     __syncthreads();
     const float* y = mlp_forward(wa, ma, col, warp);
     if (owner) {
-      sample_groups<G>(y, table, seed, ND, B, step, b, 0, ia);
+      sample_groups<G, 0>(y, table, seed, ND, B, step, b, ia);
       build_obs<NB, true>(e, oc, col.a, nullptr, 0, 0);
     }
     __syncthreads();
     y = mlp_forward(wb, mb, col, warp);
     if (owner) {
-      sample_groups<G>(y, table, seed, ND, B, step, b, G, ib);
+      sample_groups<G, G>(y, table, seed, ND, B, step, b, ib);
       if (dirs_out != nullptr) {
         int dp, ap;
         const size_t i = static_cast<size_t>(step) * 2 * B + b;
@@ -234,16 +232,14 @@ __device__ __forceinline__ void selfplay_block(float* smem, int rows,
       }
       int dirs[NPL], acts[NPL];
       joint_action<NPL>(ia, ib, dirs, acts);
-      float nzx[NB], nzy[NB];
-      const float theta =
-          env_noise<NB>(table, seed, ND, B, step, b, c.kick_noise, nzx, nzy);
+      const EnvDraws<NB> draws{table, seed, ND, B, step, b, c.kick_noise};
       bool goal0, goal1;
       float r1;
       reward[static_cast<size_t>(step) * B + b] =
-          step_dynamics<NB>(e, dirs, acts, theta, c, k, goal0, goal1, r1);
+          step_dynamics<NB>(e, dirs, acts, draws, c, k, goal0, goal1, r1);
       g0 += goal0 ? 1 : 0;
       g1 += goal1 ? 1 : 0;
-      step_finish<NB>(e, goal0, goal1, nzx, nzy, c, k);
+      step_finish<NB>(e, goal0, goal1, draws, c, k);
     }
   }
   if (owner) {

@@ -24,7 +24,7 @@
 // its block's 32 envs while warps 1-3 waited at a barrier.
 //
 // Design. Each thread owns one env for the whole rollout, its state in
-// registers (futbol_step.cuh's step_dynamics / step_finish, unchanged),
+// registers (futbol_step.cuh's step_dynamics / step_finish),
 // and each warp runs the MLP for its own 32 envs on mma.sync.m16n8k16:
 // the envs are the M rows (two m16 tiles), the layer outputs N, the inputs
 // K. Warps share nothing but the read-only weights, so the rollout loop
@@ -50,17 +50,15 @@
 //
 // Bound (chip_smoke.py phase 10, bound(), H100 SXM peaks, 700 W): per
 // env-step the products of both views on the tensor cores in bf16, the
-// env step, biases and value head in f32. Config 4 (3v3, 16384 envs,
-// hidden (256, 256)): 323,584 bf16 and 63,010 f32 operations, 0.0208 ms
-// per step; in the f32 mode all 386,594 on the CUDA cores, 0.0945 ms.
-// Config 6 (2v2, 4096 envs, two (128, 128) MLPs): 87,040 bf16 and 33,552
-// f32 operations, 0.0024 ms per step; f32 mode 0.0074 ms. Both are
-// bound by operations, the env step's f32 work the larger part. On the
-// card the env step alone (fused_rollout at the same batch) takes more
-// than half of this kernel's time: with one thread per env and 16384
-// envs there are four warps per SM to hide its latency (PERF.md §6).
+// env step (its solver updates at the measured share of active
+// contacts), biases and value head in f32; both kernels are bound by
+// operations, config 4 (3v3, 16384 envs, hidden (256, 256)) mostly by
+// its 323,584 bf16 product operations. On the card the env step alone
+// (fused_rollout at the same batch) takes about half of this kernel's
+// time: with one thread per env and 16384 envs there are four warps per
+// SM to hide its latency (PERF.md §6).
 //
-// Draws per step as fused_policy.cu (uniform_draw: Philox or the table).
+// Draws per step as fused_policy.cu (draw_range: Philox or the table).
 // C interface for ctypes; each entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -76,7 +74,6 @@ using namespace futbol;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTcMaxThreads = 128;  // 1-4 warps a block, 32 envs a warp
-constexpr int kNc = 32;             // hidden-layer outputs per chunk
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 
 // One MLP: n_hidden tanh layers, then the head (layer n_hidden, no tanh).
@@ -109,93 +106,6 @@ struct TcPlan {
   int envs, resident, t_bytes[2], ld[2];
 };
 
-// acc[m][0..3] += a[m] B for the four n8 tiles of one chunk.
-__device__ __forceinline__ void mma_chunk(float (&acc)[2][4][4], const unsigned (&a)[2][4],
-                                          const uint4& b0, const uint4& b1) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    mma_bf16(acc[m][0], a[m], b0.x, b0.y);
-    mma_bf16(acc[m][1], a[m], b0.z, b0.w);
-    mma_bf16(acc[m][2], a[m], b1.x, b1.y);
-    mma_bf16(acc[m][3], a[m], b1.z, b1.w);
-  }
-}
-
-// Chunk c of a layer (outputs 32 c ..) over the warp's 32 rows: from the
-// obs fragments in registers, or from a tile of row stride ld.
-template <int KK0>
-__device__ __forceinline__ void chunk_from_regs(float (&acc)[2][4][4],
-                                                const unsigned (&x0)[KK0][2][4],
-                                                const uint4* W, int nj, int c, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KK0; ++kk) {
-    const uint4* w = W + (kk * nj + 2 * c) * 32 + lane;
-    mma_chunk(acc, x0[kk], w[0], w[32]);
-  }
-}
-
-__device__ __forceinline__ void chunk_from_tile(float (&acc)[2][4][4], const bf16* X,
-                                                int ld, int kp, const uint4* W, int nj,
-                                                int c, int lane) {
-  const int q = lane >> 3, r = lane & 7;
-  const bf16* xa = X + ((q & 1) * 8 + r) * ld + (q >> 1) * 8;
-#pragma unroll 2
-  for (int kk = 0; kk < kp / 16; ++kk) {
-    unsigned a[2][4];
-    ldsm_x4(a[0], xa + kk * 16);
-    ldsm_x4(a[1], xa + 16 * ld + kk * 16);
-    const uint4* w = W + (kk * nj + 2 * c) * 32 + lane;
-    mma_chunk(acc, a, w[0], w[32]);
-  }
-}
-
-// tanh(acc + bias) of chunk c, in place (f32).
-__device__ __forceinline__ void bias_tanh(float (&acc)[2][4][4], const float* __restrict__ bias,
-                                          int c, int lane) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 bb =
-        __ldg(reinterpret_cast<const float2*>(bias + kNc * c + 8 * j + 2 * (lane & 3)));
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        acc[m][j][2 * h] = tanhf(acc[m][j][2 * h] + bb.x);
-        acc[m][j][2 * h + 1] = tanhf(acc[m][j][2 * h + 1] + bb.y);
-      }
-  }
-}
-
-// Chunk c's activations as bf16 pairs into tile Y (row stride ld).
-__device__ __forceinline__ void store_chunk(const float (&h)[2][4][4], bf16* Y, int ld,
-                                            int c, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<unsigned*>(Y + (16 * m + g + 8 * hh) * ld + kNc * c + 8 * j +
-                                     2 * t) = pack_bf16(h[m][j][2 * hh], h[m][j][2 * hh + 1]);
-}
-
-// hacc += A Wl over one k16 step ks of the head, A's fragments in a.
-template <int NLJ>
-__device__ __forceinline__ void head_step(float (&hacc)[2][NLJ][4], const unsigned (&a)[2][4],
-                                          const uint4* Wl, int ks, int lane) {
-  const uint4* w = Wl + ks * (NLJ / 2) * 32 + lane;
-#pragma unroll
-  for (int jj = 0; jj < NLJ / 2; ++jj) {
-    const uint4 b = w[jj * 32];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      mma_bf16(hacc[m][2 * jj], a[m], b.x, b.y);
-      mma_bf16(hacc[m][2 * jj + 1], a[m], b.z, b.w);
-    }
-  }
-}
-
 // The MLP of one view for the warp's 32 rows: x0 the obs fragments
 // (already out of the tiles). Returns the f32 tile whose row o, column
 // lane is output o of the lane's env (the value at row np_head).
@@ -205,7 +115,7 @@ __device__ __forceinline__ const float* tc_mlp(const unsigned (&x0)[KK0][2][4],
                                                const TcNet& n, const WarpTiles& wt,
                                                int lane) {
   const int nh = n.n_hidden;
-  const int g = lane >> 2, t = lane & 3;
+  const int t = lane & 3;
   const uint4* Wl = W + n.w_off[nh];
   float hacc[2][NLJ][4];
 #pragma unroll
@@ -279,39 +189,13 @@ __device__ __forceinline__ const float* tc_mlp(const unsigned (&x0)[KK0][2][4],
     }
   }
   __syncwarp();   // every read of the tiles is done: lg aliases t[0]
-  const float* bl = fv + n.b_off[nh];
-#pragma unroll
-  for (int j = 0; j < NLJ; ++j) {
-    const int col = 8 * j + 2 * t;
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(bl + col));
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = 16 * m + g + 8 * hh;
-        wt.lg[col * 32 + row] = hacc[m][j][2 * hh] + bb.x;
-        wt.lg[(col + 1) * 32 + row] = hacc[m][j][2 * hh + 1] + bb.y;
-      }
-  }
-  if (n.wv_off >= 0) {
-    const float bv = __ldg(fv + n.wv_off + n.np[nh - 1]);
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float v = vpart[m][hh];
-        v = v + __shfl_xor_sync(0xffffffffu, v, 1);
-        v = v + __shfl_xor_sync(0xffffffffu, v, 2);
-        if (t == 0) wt.lg[n.np[nh] * 32 + 16 * m + g + 8 * hh] = v + bv;
-      }
-  }
-  __syncwarp();
+  heads_out<NLJ>(hacc, vpart, fv + n.b_off[nh], n.wv_off >= 0,
+                 n.wv_off >= 0 ? __ldg(fv + n.wv_off + n.np[nh - 1]) : 0.0f, n.np[nh],
+                 wt.lg, lane);
   return wt.lg;
 }
 
-// One view's forward for the warp: each thread's env obs (zeros without
-// an env; with `obs` non-null also the f32 obs, rows F..f_pad-1 zero, as
-// build_obs writes it), staged as bf16 rows of t[0], loaded as fragments,
+// One view's forward for the warp: the obs fragments (obs_fragments),
 // then tc_mlp.
 template <int NB, bool MIRROR>
 __device__ __forceinline__ const float* view_forward(const Env<NB>& e, bool owner,
@@ -320,37 +204,11 @@ __device__ __forceinline__ const float* view_forward(const Env<NB>& e, bool owne
                                                      const uint4* W, const float* fv,
                                                      const TcNet& n, const WarpTiles& wt,
                                                      int lane) {
-  constexpr int F = 4 * NB + 2;
-  constexpr int KK0 = (F + 15) / 16;
+  constexpr int KK0 = (4 * NB + 2 + 15) / 16;
   constexpr int NLJ = ((NB - 1) * kChoices + 15) / 16 * 2;
-  float v[F];
-  if (owner) {
-    view_obs<NB, MIRROR>(e, oc, v);
-    if (obs != nullptr) {
-#pragma unroll
-      for (int f = 0; f < F; ++f) obs[f * row_stride] = v[f];
-      for (int f = F; f < f_pad; ++f) obs[f * row_stride] = 0.0f;
-    }
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) v[f] = 0.0f;
-  }
-  __syncwarp();   // the last view's logits have been read
-  bf16* row = wt.t[0] + lane * wt.ld[0];
-#pragma unroll
-  for (int k = 0; k < 16 * KK0; k += 2)
-    *reinterpret_cast<unsigned*>(row + k) =
-        pack_bf16(k < F ? v[k] : 0.0f, k + 1 < F ? v[k + 1] : 0.0f);
-  __syncwarp();
   unsigned x0[KK0][2][4];
-  const int q = lane >> 3, r = lane & 7;
-  const bf16* xa = wt.t[0] + ((q & 1) * 8 + r) * wt.ld[0] + (q >> 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KK0; ++kk) {
-    ldsm_x4(x0[kk][0], xa + kk * 16);
-    ldsm_x4(x0[kk][1], xa + 16 * wt.ld[0] + kk * 16);
-  }
-  __syncwarp();   // t[0] is free for the first layer's outputs
+  obs_fragments<NB, MIRROR>(e, owner, oc, obs, row_stride, f_pad, wt.t[0], wt.ld[0],
+                            lane, lane, x0);
   return tc_mlp<KK0, NLJ>(x0, W, fv, n, wt, lane);
 }
 
@@ -411,26 +269,26 @@ collect_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_in
     const float* y = view_forward<NB, false>(e, owner, oc, o0, row_stride, f_pad, W, fv,
                                              net, wt, lane);
     if (owner) {
-      lp[0] = sample_groups<G>(y + lane, table, seed, ND, B, step, b, 0, ia);
+      lp[0] = sample_groups<G, 0>(y + lane, table, seed, ND, B, step, b, ia);
       val[0] = y[vrow];
     }
     y = view_forward<NB, true>(e, owner, oc, owner ? o0 + f_pad * row_stride : nullptr,
                                row_stride, f_pad, W, fv, net, wt, lane);
     if (owner) {
-      lp[1] = sample_groups<G>(y + lane, table, seed, ND, B, step, b, G, ib);
+      lp[1] = sample_groups<G, G>(y + lane, table, seed, ND, B, step, b, ib);
       val[1] = y[vrow];
       int dp[2], ap[2];
       pack<G>(ia, dp[0], ap[0]);
       pack<G>(ib, dp[1], ap[1]);
       int dirs[NPL], acts[NPL];
       joint_action<NPL>(ia, ib, dirs, acts);
-      float nzx[NB], nzy[NB];
-      const float theta =
-          env_noise<NB>(table, seed, ND, B, step, b, c.kick_noise, nzx, nzy);
+      const EnvDraws<NB> draws{table, seed, ND, B, step, b, c.kick_noise};
       bool goal0, goal1;
       float r[2];
-      r[0] = step_dynamics<NB>(e, dirs, acts, theta, c, k, goal0, goal1, r[1]);
-      const int done = step_finish<NB>(e, goal0, goal1, nzx, nzy, c, k) ? 1 : 0;
+      // the unculled step (CULL false): culling slowed this kernel at
+      // config 4 (PERF.md, PR 7), though it speeds up the step alone
+      r[0] = step_dynamics<NB, false>(e, dirs, acts, draws, c, k, goal0, goal1, r[1]);
+      const int done = step_finish<NB>(e, goal0, goal1, draws, c, k) ? 1 : 0;
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
         const size_t i = (static_cast<size_t>(step) * 2 + v) * B + b;
@@ -481,10 +339,10 @@ selfplay_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_i
     int ia[G], ib[G];
     const float* y =
         view_forward<NB, false>(e, owner, oc, nullptr, 0, 0, W, fv, na, wt, lane);
-    if (owner) sample_groups<G>(y + lane, table, seed, ND, B, step, b, 0, ia);
+    if (owner) sample_groups<G, 0>(y + lane, table, seed, ND, B, step, b, ia);
     y = view_forward<NB, true>(e, owner, oc, nullptr, 0, 0, W, fv, nb, wt, lane);
     if (owner) {
-      sample_groups<G>(y + lane, table, seed, ND, B, step, b, G, ib);
+      sample_groups<G, G>(y + lane, table, seed, ND, B, step, b, ib);
       if (dirs_out != nullptr) {
         int dp, ap;
         const size_t i = static_cast<size_t>(step) * 2 * B + b;
@@ -497,16 +355,14 @@ selfplay_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_i
       }
       int dirs[NPL], acts[NPL];
       joint_action<NPL>(ia, ib, dirs, acts);
-      float nzx[NB], nzy[NB];
-      const float theta =
-          env_noise<NB>(table, seed, ND, B, step, b, c.kick_noise, nzx, nzy);
+      const EnvDraws<NB> draws{table, seed, ND, B, step, b, c.kick_noise};
       bool goal0, goal1;
       float r1;
       reward[static_cast<size_t>(step) * B + b] =
-          step_dynamics<NB>(e, dirs, acts, theta, c, k, goal0, goal1, r1);
+          step_dynamics<NB>(e, dirs, acts, draws, c, k, goal0, goal1, r1);
       g0 += goal0 ? 1 : 0;
       g1 += goal1 ? 1 : 0;
-      step_finish<NB>(e, goal0, goal1, nzx, nzy, c, k);
+      step_finish<NB>(e, goal0, goal1, draws, c, k);
     }
   }
   if (owner) {

@@ -217,7 +217,7 @@ __device__ __forceinline__ void recurrent_block(float* smem, int rows, int hsize
     const float* y = recurrent_forward(
         w, m, hsize, col, hc, Carry{c_src, h_src, io.c_out, io.h_out}, B, b, warp);
     if (owner) {
-      lp[0] = sample_groups<G>(y, table, seed, ND, B, step, b, 0, ia);
+      lp[0] = sample_groups<G, 0>(y, table, seed, ND, B, step, b, ia);
       val[0] = y[G * kChoices * kBlock];
       build_obs<NB, true>(e, oc, col.a, o0 + f_pad * row_stride, row_stride, f_pad);
     }
@@ -227,20 +227,18 @@ __device__ __forceinline__ void recurrent_block(float* smem, int rows, int hsize
                                 io.h_out + view},
                           B, b, warp);
     if (owner) {
-      lp[1] = sample_groups<G>(y, table, seed, ND, B, step, b, G, ib);
+      lp[1] = sample_groups<G, G>(y, table, seed, ND, B, step, b, ib);
       val[1] = y[G * kChoices * kBlock];
       int dp[2], ap[2];
       pack<G>(ia, dp[0], ap[0]);
       pack<G>(ib, dp[1], ap[1]);
       int dirs[NPL], acts[NPL];
       joint_action<NPL>(ia, ib, dirs, acts);
-      float nzx[NB], nzy[NB];
-      const float theta =
-          env_noise<NB>(table, seed, ND, B, step, b, c.kick_noise, nzx, nzy);
+      const EnvDraws<NB> draws{table, seed, ND, B, step, b, c.kick_noise};
       bool goal0, goal1;
       float r[2];
-      r[0] = step_dynamics<NB>(e, dirs, acts, theta, c, k, goal0, goal1, r[1]);
-      const int done = step_finish<NB>(e, goal0, goal1, nzx, nzy, c, k) ? 1 : 0;
+      r[0] = step_dynamics<NB>(e, dirs, acts, draws, c, k, goal0, goal1, r[1]);
+      const int done = step_finish<NB>(e, goal0, goal1, draws, c, k) ? 1 : 0;
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
         const size_t i = (static_cast<size_t>(step) * 2 + v) * B + b;

@@ -20,7 +20,13 @@
 // the rate at which the SMs dispatch them. The body count is a
 // template parameter so the body and pair loops unroll and their values
 // live in registers; the T, substep and iteration loops stay runtime
-// loops to bound code size and build time.
+// loops to bound code size and build time. Most of that chain is the
+// contact solver's sweep over every body pair and (wall, body) pair, and
+// most of those constraints touch nothing in a given substep: the step
+// runs only the updates that some lane of the warp needs (futbol_step.cuh,
+// culling), and draws only what it reads, one Philox per four draws.
+// A lane past the batch's end has left the kernel; the warp's votes
+// count only the lanes still in it.
 //
 // The step, its floating-point rules and the Philox draws are shared
 // with the policy kernels in futbol_step.cuh. Random mode draws from
@@ -59,27 +65,19 @@ random_rollout_kernel(const float* __restrict__ sf_in, const int* __restrict__ s
 #pragma unroll 1
   for (int step = 0; step < T; ++step) {
     int dirs[NPL], acts[NPL];
+    float u[2 * NPL];
+    draw_range<0, 2 * NPL>(table, seed, ND, B, step, b, u);
 #pragma unroll
     for (int p = 0; p < NPL; ++p) {
-      dirs[p] = randint5_from(uniform_draw(table, seed, ND, B, step, b, p));
-      acts[p] = randint5_from(uniform_draw(table, seed, ND, B, step, b, NPL + p));
+      dirs[p] = randint5_from(u[p]);
+      acts[p] = randint5_from(u[NPL + p]);
     }
-    const float theta =
-        normal_from(uniform_draw(table, seed, ND, B, step, b, 2 * NPL),
-                    uniform_draw(table, seed, ND, B, step, b, 2 * NPL + 1)) *
-        c.kick_noise;
+    const EnvDraws<NB> draws{table, seed, ND, B, step, b, c.kick_noise};
     bool goal0, goal1;
     float r1;
     reward[static_cast<size_t>(step) * B + b] =
-        step_dynamics<NB>(e, dirs, acts, theta, c, k, goal0, goal1, r1);
-    float nzx[NB], nzy[NB];
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      nzx[i] = pm1_from(uniform_draw(table, seed, ND, B, step, b, 2 * NPL + 2 + i));
-      nzy[i] = pm1_from(
-          uniform_draw(table, seed, ND, B, step, b, 2 * NPL + 2 + NB + i));
-    }
-    step_finish<NB>(e, goal0, goal1, nzx, nzy, c, k);
+        step_dynamics<NB>(e, dirs, acts, draws, c, k, goal0, goal1, r1);
+    step_finish<NB>(e, goal0, goal1, draws, c, k);
   }
   store_env<NB>(e, sf_out, si_out, B, b);
 }
@@ -97,9 +95,7 @@ replay_rollout_kernel(const float* __restrict__ sf_in, const int* __restrict__ s
   if (b >= B) return;
   Env<NB> e;
   load_env<NB>(e, sf_in, si_in, B, b);
-  float zero[NB];
-#pragma unroll
-  for (int i = 0; i < NB; ++i) zero[i] = 0.0f;
+  const NoDraws<NB> none;
 #pragma unroll 1
   for (int step = 0; step < T; ++step) {
     int dirs[NPL], acts[NPL];
@@ -112,8 +108,8 @@ replay_rollout_kernel(const float* __restrict__ sf_in, const int* __restrict__ s
     bool goal0, goal1;
     float r1;
     reward[static_cast<size_t>(step) * B + b] =
-        step_dynamics<NB>(e, dirs, acts, 0.0f, c, k, goal0, goal1, r1);
-    step_finish<NB>(e, goal0, goal1, zero, zero, c, k);
+        step_dynamics<NB>(e, dirs, acts, none, c, k, goal0, goal1, r1);
+    step_finish<NB>(e, goal0, goal1, none, c, k);
   }
   store_env<NB>(e, sf_out, si_out, B, b);
 }

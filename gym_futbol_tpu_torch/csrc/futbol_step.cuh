@@ -17,6 +17,24 @@
 // (uint32 >> 8) * 2^-24, with an unsigned shift. Draw d of a step is word
 // d % 4 of group d / 4. A uniforms table f32 [T, n_draws, B] may replace
 // Philox, so a kernel and its plain version can consume identical draws.
+// A kernel computes one Philox per group of four draws it reads
+// (draw_range), and the env's own draws only where they are read: the
+// kick angle where some lane of the warp kicks, the kickoff placement
+// where some lane re-places its bodies (EnvDraws). Draws are indexed, so
+// skipping one changes no other.
+//
+// Culling (solve_contacts): an inactive pair (pen <= 0, bmv = 1e20) or
+// wall (d <= 0, wn = -1e20) update is an exact no-op on the velocities
+// and accumulators, up to the sign of a zero, and activity is fixed for a
+// substep. Each substep, every lane builds bitmasks of its active pairs
+// and walls and the warp ORs them (warp_union, over the lanes that run
+// the step); each update runs under a warp-uniform branch on the union's
+// bit, so a lane whose own bit is clear still runs it as a no-op and the
+// order of operations never changes: the result is the plain version's,
+// bitwise (signed zeros compare equal). The branch is warp-uniform, so the
+// warp stays converged for the mma.sync of the kernels that inline the
+// step. step_dynamics' CULL parameter turns it off for a kernel that
+// measured slower with it (fused_policy_tc.cu's collect_tc_kernel).
 
 #pragma once
 
@@ -66,20 +84,39 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0,
   return ctr;
 }
 
-// Uniform [0, 1) draw d of step `step` for env b.
-__device__ __forceinline__ float uniform_draw(const float* __restrict__ table,
-                                              uint32_t seed, int n_draws,
-                                              int B, int step, int b, int d) {
+// Draws LO .. LO + N - 1 of step `step` for env b into u: from the table,
+// or one Philox per group of four draws that the range touches.
+template <int LO, int N>
+__device__ __forceinline__ void draw_range(const float* __restrict__ table,
+                                           uint32_t seed, int n_draws, int B,
+                                           int step, int b, float (&u)[N]) {
   if (table != nullptr) {
-    return __ldg(&table[(static_cast<size_t>(step) * n_draws + d) * B + b]);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      u[i] = __ldg(&table[(static_cast<size_t>(step) * n_draws + LO + i) * B + b]);
+    return;
   }
-  const uint4 r = philox4x32_10(
-      make_uint4(static_cast<uint32_t>(b), static_cast<uint32_t>(step),
-                 static_cast<uint32_t>(d >> 2), 0u),
-      seed, 0u);
-  const int lane = d & 3;
-  const uint32_t bits = lane == 0 ? r.x : lane == 1 ? r.y : lane == 2 ? r.z : r.w;
-  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+#pragma unroll
+  for (int g = LO / 4; g <= (LO + N - 1) / 4; ++g) {
+    const uint4 r = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(b), static_cast<uint32_t>(step),
+                   static_cast<uint32_t>(g), 0u),
+        seed, 0u);
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int d = 4 * g + q;
+      if (d >= LO && d < LO + N)
+        u[d - LO] = static_cast<float>(w[q] >> 8) * (1.0f / 16777216.0f);
+    }
+  }
+}
+
+// Votes over the lanes of the warp that run this call (every lane of a
+// warp that executes the step together; a lane that has left, or skips
+// the step, adds nothing and reads nothing).
+__device__ __forceinline__ bool warp_any(bool p) {
+  return __any_sync(__activemask(), p);
 }
 
 __device__ __forceinline__ int randint5_from(float u) {
@@ -98,6 +135,47 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
+// The env's own draws of one step, after the 2 * (NB - 1) action draws:
+// the kick angle's two, then kickoff x and y per body. Drawn only when
+// asked (step_dynamics, step_finish ask where some lane of the warp needs
+// them).
+template <int NB>
+struct EnvDraws {
+  static constexpr int D = 2 * (NB - 1);
+  const float* table;
+  uint32_t seed;
+  int n_draws, B, step, b;
+  float kick_noise;
+  __device__ __forceinline__ float kick_angle() const {
+    float u[2];
+    draw_range<D, 2>(table, seed, n_draws, B, step, b, u);
+    return normal_from(u[0], u[1]) * kick_noise;
+  }
+  __device__ __forceinline__ void kickoff(float (&nzx)[NB], float (&nzy)[NB]) const {
+    float u[2 * NB];
+    draw_range<D + 2, 2 * NB>(table, seed, n_draws, B, step, b, u);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      nzx[i] = pm1_from(u[i]);
+      nzy[i] = pm1_from(u[NB + i]);
+    }
+  }
+};
+
+// No noise: a kick goes straight, the kickoff places without jitter
+// (the replay rollout).
+template <int NB>
+struct NoDraws {
+  __device__ __forceinline__ float kick_angle() const { return 0.0f; }
+  __device__ __forceinline__ void kickoff(float (&nzx)[NB], float (&nzy)[NB]) const {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      nzx[i] = 0.0f;
+      nzy[i] = 0.0f;
+    }
+  }
+};
+
 __device__ __forceinline__ float dir_x(int d) {
   return d == 2 ? 1.0f : (d == 4 ? -1.0f : 0.0f);
 }
@@ -109,13 +187,28 @@ __device__ __forceinline__ float dir_y(int d) {
 // Physics (gym_futbol_tpu_torch/physics.py)
 // ---------------------------------------------------------------------------
 
-template <int NB>
+// The union of N-bit masks (N <= 64) over the lanes of the warp that run
+// this call, as warp_any votes.
+template <int N>
+__device__ __forceinline__ uint64_t warp_union(uint64_t m) {
+  const unsigned lanes = __activemask();
+  const uint64_t lo = __reduce_or_sync(lanes, static_cast<uint32_t>(m));
+  if (N <= 32) return lo;
+  return lo | static_cast<uint64_t>(__reduce_or_sync(lanes, static_cast<uint32_t>(m >> 32)))
+                  << 32;
+}
+
+// One substep's contact solve. With CULL, the warp runs only the pair and
+// wall updates that some lane of it needs (the file's head note).
+template <int NB, bool CULL>
 __device__ __forceinline__ void solve_contacts(const float (&px)[NB],
                                                const float (&py)[NB],
                                                float (&vx)[NB], float (&vy)[NB],
                                                const Consts& c, int iterations) {
   constexpr int NPAIR = NB * (NB - 1) / 2;
+  static_assert(NPAIR <= 64 && 4 * NB <= 64, "activity masks hold 64 bits");
   float nx_p[NPAIR], ny_p[NPAIR], bmv_p[NPAIR], jn[NPAIR], jt[NPAIR];
+  uint64_t pair_on = 0, wall_on = 0;   // this lane's active pairs, walls
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
 #pragma unroll
@@ -135,6 +228,7 @@ __device__ __forceinline__ void solve_contacts(const float (&px)[NB],
       nx_p[p] = nx;
       ny_p[p] = ny;
       bmv_p[p] = pen > 0.0f ? bounce - vbias : 1e20f;
+      pair_on |= pen > 0.0f ? 1ull << p : 0ull;
       jn[p] = 0.0f;
       jt[p] = 0.0f;
     }
@@ -159,9 +253,19 @@ __device__ __forceinline__ void solve_contacts(const float (&px)[NB],
       const float wbounce = e_w * fminf(vrn0_w[w], 0.0f);
       const float wvbias = c.bias_coef * fmaxf(d[w] - c.slop, 0.0f);
       wn[w][i] = d[w] > 0.0f ? wvbias - wbounce : -1e20f;
+      wall_on |= d[w] > 0.0f ? 1ull << (w * NB + i) : 0ull;
       jv[w][i] = 0.0f;
       jtv[w][i] = 0.0f;
     }
+  }
+
+  // the warp's union: an update runs where any lane needs it
+  if (CULL) {
+    pair_on = warp_union<NPAIR>(pair_on);
+    wall_on = warp_union<4 * NB>(wall_on);
+  } else {
+    pair_on = ~0ull;
+    wall_on = ~0ull;
   }
 
 #pragma unroll 1
@@ -171,6 +275,7 @@ __device__ __forceinline__ void solve_contacts(const float (&px)[NB],
 #pragma unroll
       for (int j = i + 1; j < NB; ++j) {
         const int p = i * NB - i * (i + 1) / 2 + (j - i - 1);
+        if (!((pair_on >> p) & 1ull)) continue;
         const float inv_mi = i == 0 ? c.inv_m_ball : c.inv_m_player;
         const float nkn = i == 0 ? c.nkn_bp : c.nkn_pp;
         const float nx = nx_p[p], ny = ny_p[p];
@@ -201,6 +306,7 @@ __device__ __forceinline__ void solve_contacts(const float (&px)[NB],
     for (int w = 0; w < 4; ++w) {
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
+        if (!((wall_on >> (w * NB + i)) & 1ull)) continue;
         float dv0;
         if (w == 0) dv0 = wn[w][i] - vy[i];
         else if (w == 1) dv0 = wn[w][i] + vy[i];
@@ -231,7 +337,7 @@ __device__ __forceinline__ void solve_contacts(const float (&px)[NB],
   }
 }
 
-template <int NB>
+template <int NB, bool CULL>
 __device__ __forceinline__ void physics_step(float (&px)[NB], float (&py)[NB],
                                              float (&vx)[NB], float (&vy)[NB],
                                              const float (&fx)[NB],
@@ -250,7 +356,7 @@ __device__ __forceinline__ void physics_step(float (&px)[NB], float (&py)[NB],
       vx[i] = nvx * scale;
       vy[i] = nvy * scale;
     }
-    solve_contacts<NB>(px, py, vx, vy, c, k.iterations);
+    solve_contacts<NB, CULL>(px, py, vx, vy, c, k.iterations);
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       px[i] = px[i] + vx[i] * c.dt_sub;
@@ -315,12 +421,14 @@ __device__ __forceinline__ float team_reward(const float (&px0)[NB],
 
 // Steps 1-8 of the STEP ORDER: intent, physics, dribble, goals, bounds,
 // rewards. Returns the team-0 reward; sets the goal flags and the team-1
-// reward `r1` (dead code, removed by the compiler, where unused).
-template <int NB>
+// reward `r1` (dead code, removed by the compiler, where unused). The kick
+// angle comes from draws.kick_angle(), asked where some lane of the warp
+// kicks (EnvDraws or NoDraws). CULL: solve_contacts'.
+template <int NB, bool CULL = true, class Draws>
 __device__ __forceinline__ float step_dynamics(Env<NB>& e,
                                                const int (&dirs)[NB - 1],
                                                const int (&acts)[NB - 1],
-                                               float theta, const Consts& c,
+                                               const Draws& draws, const Consts& c,
                                                const Ints& k, bool& goal0,
                                                bool& goal1, float& r1) {
   constexpr int NPL = NB - 1;
@@ -423,11 +531,13 @@ __device__ __forceinline__ float step_dynamics(Env<NB>& e,
       pdx = sdx;
       pdy = sdy;
     }
+    const bool kicked = do_pass || do_shoot;
+    // the angle is read only where the lane kicks
+    const float theta = warp_any(kicked) ? draws.kick_angle() : 0.0f;
     const float cs = cosf(theta), sn = sinf(theta);
     const float kdx = do_shoot ? cs * sdx - sn * sdy : cs * pdx - sn * pdy;
     const float kdy = do_shoot ? sn * sdx + cs * sdy : sn * pdx + cs * pdy;
     const float power = do_shoot ? c.shoot_power : c.pass_power;
-    const bool kicked = do_pass || do_shoot;
     const float impulse = kicked ? power : 0.0f;
     const float dvx = kicked ? kdx * impulse / c.ball_mass : 0.0f;
     const float dvy = kicked ? kdy * impulse / c.ball_mass : 0.0f;
@@ -437,7 +547,7 @@ __device__ __forceinline__ float step_dynamics(Env<NB>& e,
   }
 
   // 4: physics
-  physics_step<NB>(e.px, e.py, e.vx, e.vy, fx, fy, c, k);
+  physics_step<NB, CULL>(e.px, e.py, e.vx, e.vy, fx, fy, c, k);
 
   // 5: dribble carry
   {
@@ -495,35 +605,39 @@ __device__ __forceinline__ float step_dynamics(Env<NB>& e,
 
 // Steps 9-10: kickoff re-placement where a goal occurred, clock, and a
 // fresh episode where done that reuses the same kickoff draw. Returns
-// done (the clock reached max_steps).
-template <int NB>
+// done (the clock reached max_steps). The kickoff draws come from
+// draws.kickoff(), asked where some lane of the warp re-places.
+template <int NB, class Draws>
 __device__ __forceinline__ bool step_finish(Env<NB>& e, bool goal0, bool goal1,
-                                            const float (&nzx)[NB],
-                                            const float (&nzy)[NB],
-                                            const Consts& c, const Ints& k) {
+                                            const Draws& draws, const Consts& c,
+                                            const Ints& k) {
   constexpr int PPT = (NB - 1) / 2;
-  float kox[NB], koy[NB];
-  kox[0] = c.center_x + nzx[0] * c.kick_amp;
-  koy[0] = c.half_height + nzy[0] * c.kick_amp;
-#pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    kox[1 + q] = c.base_x0 + nzx[1 + q] * c.kick_amp;
-    koy[1 + q] = c.y0[q] + nzy[1 + q] * c.kick_amp;
-    kox[1 + PPT + q] = c.base_x1 + nzx[1 + PPT + q] * c.kick_amp;
-    koy[1 + PPT + q] = c.y0[q] + nzy[1 + PPT + q] * c.kick_amp;
-  }
   const bool any_goal = goal0 || goal1;
   e.s0 += goal0 ? 1 : 0;
   e.s1 += goal1 ? 1 : 0;
   e.t += 1;
   const bool done = e.t >= k.max_steps;
   const bool place = any_goal || done;
+  if (warp_any(place)) {
+    float nzx[NB], nzy[NB];
+    draws.kickoff(nzx, nzy);
+    float kox[NB], koy[NB];
+    kox[0] = c.center_x + nzx[0] * c.kick_amp;
+    koy[0] = c.half_height + nzy[0] * c.kick_amp;
 #pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    e.px[i] = place ? kox[i] : e.px[i];
-    e.py[i] = place ? koy[i] : e.py[i];
-    e.vx[i] = place ? 0.0f : e.vx[i];
-    e.vy[i] = place ? 0.0f : e.vy[i];
+    for (int q = 0; q < PPT; ++q) {
+      kox[1 + q] = c.base_x0 + nzx[1 + q] * c.kick_amp;
+      koy[1 + q] = c.y0[q] + nzy[1 + q] * c.kick_amp;
+      kox[1 + PPT + q] = c.base_x1 + nzx[1 + PPT + q] * c.kick_amp;
+      koy[1 + PPT + q] = c.y0[q] + nzy[1 + PPT + q] * c.kick_amp;
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      e.px[i] = place ? kox[i] : e.px[i];
+      e.py[i] = place ? koy[i] : e.py[i];
+      e.vx[i] = place ? 0.0f : e.vx[i];
+      e.vy[i] = place ? 0.0f : e.vy[i];
+    }
   }
   if (place) e.poss = -1;
   if (done) {

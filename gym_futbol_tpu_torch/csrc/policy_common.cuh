@@ -8,8 +8,10 @@
 // Every product and sum is rounded as the plain PyTorch versions round
 // them (ops/fused_actor.py dense_rows): build with --fmad=false.
 //
-// At the end, the tensor-core helpers of the bf16 route
-// (fused_policy_tc.cu): ldmatrix and mma.sync.m16n8k16.
+// At the end, the tensor-core helpers of the bf16 routes
+// (fused_policy_tc.cu, fused_recurrent_tc.cu): ldmatrix, mma.sync.m16n8k16,
+// a layer's 32-output chunk, a head's k16 step and its f32 outputs, and a
+// view's obs as the first layer's A fragments.
 
 #pragma once
 
@@ -137,14 +139,15 @@ __device__ __forceinline__ void build_obs(const Env<NB>& e, const ObsConsts& oc,
 }
 
 // Inverse-CDF sampling of the G groups of 5 logits in rows g*5+i of
-// `logits`, with draw d0 + g for group g (sample_with_logp). Returns the
+// `logits`, with draw D0 + g for group g (sample_with_logp). Returns the
 // joint log-prob of the sampled indices.
-template <int G>
+template <int G, int D0>
 __device__ __forceinline__ float sample_groups(const float* logits,
                                                const float* __restrict__ table,
                                                uint32_t seed, int n_draws, int B,
-                                               int step, int b, int d0,
-                                               int (&idx)[G]) {
+                                               int step, int b, int (&idx)[G]) {
+  float ug[G];
+  draw_range<D0, G>(table, seed, n_draws, B, step, b, ug);
   float logp = 0.0f;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -160,7 +163,7 @@ __device__ __forceinline__ float sample_groups(const float* logits,
 #pragma unroll
     for (int i = 1; i < kChoices; ++i) z = z + ex[i];
     const float logz = logf(z);
-    const float u = uniform_draw(table, seed, n_draws, B, step, b, d0 + g) * z;
+    const float u = ug[g] * z;
     float cum = ex[0];
     int k = u > cum ? 1 : 0;
 #pragma unroll
@@ -204,24 +207,6 @@ __device__ __forceinline__ void pack(const int (&idx)[NPL], int& dpack, int& apa
     dpack |= idx[2 * p] << (3 * p);
     apack |= idx[2 * p + 1] << (3 * p);
   }
-}
-
-// The kick angle and kickoff noise of a step: draws 2G.. of the step.
-template <int NB>
-__device__ __forceinline__ float env_noise(const float* __restrict__ table,
-                                           uint32_t seed, int n_draws, int B,
-                                           int step, int b, float kick_noise,
-                                           float (&nzx)[NB], float (&nzy)[NB]) {
-  constexpr int D = 2 * (NB - 1);
-  const float theta = normal_from(uniform_draw(table, seed, n_draws, B, step, b, D),
-                                  uniform_draw(table, seed, n_draws, B, step, b, D + 1)) *
-                      kick_noise;
-#pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    nzx[i] = pm1_from(uniform_draw(table, seed, n_draws, B, step, b, D + 2 + i));
-    nzy[i] = pm1_from(uniform_draw(table, seed, n_draws, B, step, b, D + 2 + NB + i));
-  }
-  return theta;
 }
 
 // The per-step trajectory buffer of a collect.
@@ -299,6 +284,176 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 __device__ __forceinline__ unsigned pack_bf16(float x, float y) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
   return *reinterpret_cast<const unsigned*>(&p);
+}
+
+constexpr int kNc = 32;   // hidden-layer outputs per tensor-core chunk
+
+// acc[m][0..3] += a[m] B for the four n8 tiles of one chunk.
+__device__ __forceinline__ void mma_chunk(float (&acc)[2][4][4], const unsigned (&a)[2][4],
+                                          const uint4& b0, const uint4& b1) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    mma_bf16(acc[m][0], a[m], b0.x, b0.y);
+    mma_bf16(acc[m][1], a[m], b0.z, b0.w);
+    mma_bf16(acc[m][2], a[m], b1.x, b1.y);
+    mma_bf16(acc[m][3], a[m], b1.z, b1.w);
+  }
+}
+
+// Chunk c of a layer (outputs 32 c ..) over the warp's 32 rows: from the
+// obs fragments in registers, or from a tile of row stride ld.
+template <int KK0>
+__device__ __forceinline__ void chunk_from_regs(float (&acc)[2][4][4],
+                                                const unsigned (&x0)[KK0][2][4],
+                                                const uint4* W, int nj, int c, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KK0; ++kk) {
+    const uint4* w = W + (kk * nj + 2 * c) * 32 + lane;
+    mma_chunk(acc, x0[kk], w[0], w[32]);
+  }
+}
+
+__device__ __forceinline__ void chunk_from_tile(float (&acc)[2][4][4], const __nv_bfloat16* X,
+                                                int ld, int kp, const uint4* W, int nj,
+                                                int c, int lane) {
+  const int q = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* xa = X + ((q & 1) * 8 + r) * ld + (q >> 1) * 8;
+#pragma unroll 2
+  for (int kk = 0; kk < kp / 16; ++kk) {
+    unsigned a[2][4];
+    ldsm_x4(a[0], xa + kk * 16);
+    ldsm_x4(a[1], xa + 16 * ld + kk * 16);
+    const uint4* w = W + (kk * nj + 2 * c) * 32 + lane;
+    mma_chunk(acc, a, w[0], w[32]);
+  }
+}
+
+// tanh(acc + bias) of chunk c, in place (f32).
+__device__ __forceinline__ void bias_tanh(float (&acc)[2][4][4], const float* __restrict__ bias,
+                                          int c, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 bb =
+        __ldg(reinterpret_cast<const float2*>(bias + kNc * c + 8 * j + 2 * (lane & 3)));
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[m][j][2 * h] = tanhf(acc[m][j][2 * h] + bb.x);
+        acc[m][j][2 * h + 1] = tanhf(acc[m][j][2 * h + 1] + bb.y);
+      }
+  }
+}
+
+// Chunk c's activations as bf16 pairs into tile Y (row stride ld).
+__device__ __forceinline__ void store_chunk(const float (&h)[2][4][4], __nv_bfloat16* Y, int ld,
+                                            int c, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<unsigned*>(Y + (16 * m + g + 8 * hh) * ld + kNc * c + 8 * j +
+                                     2 * t) = pack_bf16(h[m][j][2 * hh], h[m][j][2 * hh + 1]);
+}
+
+// hacc += A Wl over one k16 step ks of the head, A's fragments in a.
+template <int NLJ>
+__device__ __forceinline__ void head_step(float (&hacc)[2][NLJ][4], const unsigned (&a)[2][4],
+                                          const uint4* Wl, int ks, int lane) {
+  const uint4* w = Wl + ks * (NLJ / 2) * 32 + lane;
+#pragma unroll
+  for (int jj = 0; jj < NLJ / 2; ++jj) {
+    const uint4 b = w[jj * 32];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      mma_bf16(hacc[m][2 * jj], a[m], b.x, b.y);
+      mma_bf16(hacc[m][2 * jj + 1], a[m], b.z, b.w);
+    }
+  }
+}
+
+// A head's f32 outputs into the warp's tile lg ([np_head + 1][32]: row o,
+// column r is output o of the warp's env r): the logits hacc plus their
+// bias bl, and, with has_value, the value at row np_head from the lanes'
+// partial sums vpart (over the lane's outputs of the last layer; summed
+// over the four lanes of each row, then its bias bv).
+template <int NLJ>
+__device__ __forceinline__ void heads_out(const float (&hacc)[2][NLJ][4],
+                                          const float (&vpart)[2][2],
+                                          const float* __restrict__ bl, bool has_value,
+                                          float bv, int np_head, float* lg, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NLJ; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(bl + col));
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * m + g + 8 * hh;
+        lg[col * 32 + row] = hacc[m][j][2 * hh] + bb.x;
+        lg[(col + 1) * 32 + row] = hacc[m][j][2 * hh + 1] + bb.y;
+      }
+  }
+  if (has_value) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v = vpart[m][hh];
+        v = v + __shfl_xor_sync(0xffffffffu, v, 1);
+        v = v + __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) lg[np_head * 32 + 16 * m + g + 8 * hh] = v + bv;
+      }
+  }
+  __syncwarp();
+}
+
+// Each thread's env obs of one view (zeros without an env; with `obs`
+// non-null also the f32 obs, rows F..f_pad-1 zero, as build_obs writes
+// it), staged as bf16 row `row` (the thread's env's M row) of the warp's
+// tile `t` (row stride ld), then loaded as the A fragments x0 of the
+// first layer; t is free again after.
+template <int NB, bool MIRROR>
+__device__ __forceinline__ void obs_fragments(const Env<NB>& e, bool owner,
+                                              const ObsConsts& oc, float* obs,
+                                              size_t row_stride, int f_pad,
+                                              __nv_bfloat16* t, int ld, int row,
+                                              int lane,
+                                              unsigned (&x0)[(4 * NB + 2 + 15) / 16][2][4]) {
+  constexpr int F = 4 * NB + 2;
+  constexpr int KK0 = (F + 15) / 16;
+  float v[F];
+  if (owner) {
+    view_obs<NB, MIRROR>(e, oc, v);
+    if (obs != nullptr) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) obs[f * row_stride] = v[f];
+      for (int f = F; f < f_pad; ++f) obs[f * row_stride] = 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = 0.0f;
+  }
+  __syncwarp();   // the last view's outputs have been read
+  __nv_bfloat16* mine = t + row * ld;
+#pragma unroll
+  for (int k = 0; k < 16 * KK0; k += 2)
+    *reinterpret_cast<unsigned*>(mine + k) =
+        pack_bf16(k < F ? v[k] : 0.0f, k + 1 < F ? v[k + 1] : 0.0f);
+  __syncwarp();
+  const int q = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* xa = t + ((q & 1) * 8 + r) * ld + (q >> 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KK0; ++kk) {
+    ldsm_x4(x0[kk][0], xa + kk * 16);
+    ldsm_x4(x0[kk][1], xa + 16 * ld + kk * 16);
+  }
+  __syncwarp();   // t is free for the first layer's outputs
 }
 
 }  // namespace futbol

@@ -186,7 +186,10 @@ def apply_kick_scalars(
     )
     kicked = do_pass | do_shoot
     impulse = torch.where(kicked, power, 0.0)
-    bm = to_dtype(params.ball_mass, dtype)
+    # the mass as a tensor on the batch's device: PyTorch's CUDA division by
+    # a host scalar multiplies by its reciprocal, which is not the IEEE
+    # quotient the kernels and the JAX package compute
+    bm = _full(bx, to_dtype(params.ball_mass, dtype))
     dvx = torch.where(kicked, kdx * impulse / bm, 0.0)
     dvy = torch.where(kicked, kdy * impulse / bm, 0.0)
     possession = torch.where(kicked, -1, possession)

@@ -210,6 +210,24 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_recurrent.restype = i
+    lib.futbol_fused_recurrent_tc.argtypes = [
+        p, p, p, p,           # statef, statei in; statef, statei out
+        p, i, p,              # bf16 weight fragments, their 16-byte units, f32 vector
+        i32p, i, i, i,        # layer table [n_torso + 2, 4], n_torso, LSTM size H,
+                              # value head offset
+        i32p,                 # plan: envs, resident units, tile bytes x3, row strides x3
+        p, p, p, p,           # carry_c, carry_h in; carry_c, carry_h out
+        p, p, p, p, p, p, p,  # obs, dirs, acts, logp, value, reward, done
+        p,                    # last_value
+        p,                    # uniforms table or NULL
+        ctypes.c_uint32,      # seed
+        i, i, i, i,           # n_bodies, B, T, F_pad
+        i, i, i,              # substeps, solver_iterations, max_steps
+        f32p, i,              # host constants, count
+        f32p,                 # observation scales
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_fused_recurrent_tc.restype = i
     lib.futbol_fused_update.argtypes = [
         p, p,                 # host arrays of weight / gradient pointers
         i32p, i, i, i,        # widths [n_torso + 1], n_torso, F, G*5

@@ -34,7 +34,8 @@ from ..types import EnvParams, EnvState
 LAUNCHES = {"fused_rollout": 0, "fused_rollout_replay": 0,
             "fused_collect": 0, "fused_selfplay_rollout": 0,
             "fused_collect_f32": 0, "fused_selfplay_rollout_f32": 0,
-            "fused_minibatch_grad": 0, "fused_recurrent_collect": 0}
+            "fused_minibatch_grad": 0, "fused_recurrent_collect": 0,
+            "fused_recurrent_collect_f32": 0}
 
 
 def reset_launch_counts() -> None:

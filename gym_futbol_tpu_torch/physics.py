@@ -106,20 +106,34 @@ def _rsqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x).reciprocal()
 
 
-def _solve_contacts_scalar(
-    px: list, py: list, vx: list, vy: list, params: EnvParams, dtype,
-) -> tuple[list, list]:
-    """Spec items 2-3 in scalar-SSA form: returns post-solve (vx, vy)."""
+def _pair_active(pen: torch.Tensor) -> torch.Tensor:
+    """Spec item 3's activity test of a body pair: penetrating."""
+    return pen > 0
+
+
+def _wall_active(d: torch.Tensor) -> torch.Tensor:
+    """The activity test of a (wall, body) constraint: overlapping."""
+    return d > 0
+
+
+def _contact_setup(px: list, py: list, vx: list, vy: list, params: EnvParams,
+                   dtype) -> SimpleNamespace:
+    """Spec items 2-3's per-substep set-up in scalar-SSA form: per pair
+    (lexicographic order) its normal, the normals premultiplied by each
+    body's inverse mass, -k_n and ``bmv`` (bounce - v_bias, or the 1e20
+    inactive sentinel); per wall [bottom, top, left, right] and body its
+    ``wn`` (v_bias - bounce, or -1e20); and the activity masks ``pair_on``
+    and ``wall_on`` that chose between them."""
     c = physics_constants(params, dtype)
     n = len(px)
     pairs = circle_pairs(n)
     inv_m = [c.inv_m_ball] + [c.inv_m_player] * (n - 1)
     radii = [c.r_ball] + [c.r_player] * (n - 1)
-    mu = c.mu
 
     # ---- circle-circle precompute (hot-form, spec item 3) ----------------
-    nx_p, ny_p, nxi_p, nyi_p, nxj_p, nyj_p, nkn_p, bmv_p = (
-        [], [], [], [], [], [], [], [])
+    k = SimpleNamespace(pairs=pairs, nx=[], ny=[], nxi=[], nyi=[], nxj=[], nyj=[],
+                        nkn=[], bmv=[], pair_on=[], wn=[[None] * n for _ in range(4)],
+                        wall_on=[[None] * n for _ in range(4)])
     for (i, j) in pairs:
         dpx = px[j] - px[i]
         dpy = py[j] - py[i]
@@ -133,18 +147,19 @@ def _solve_contacts_scalar(
         e = c.e_bp if i == 0 else c.e_pp
         bounce = e * vrn0.clamp_max(0.0)
         vbias = c.bias_coef * (pen - c.slop).clamp_min(0.0)
-        nx_p.append(nx)
-        ny_p.append(ny)
-        nxi_p.append(nx * inv_m[i])
-        nyi_p.append(ny * inv_m[i])
-        nxj_p.append(nx * inv_m[j])
-        nyj_p.append(ny * inv_m[j])
-        nkn_p.append(c.nkn_bp if i == 0 else c.nkn_pp)
-        bmv_p.append(torch.where(pen > 0, bounce - vbias, _BIG))
+        on = _pair_active(pen)
+        k.nx.append(nx)
+        k.ny.append(ny)
+        k.nxi.append(nx * inv_m[i])
+        k.nyi.append(ny * inv_m[i])
+        k.nxj.append(nx * inv_m[j])
+        k.nyj.append(ny * inv_m[j])
+        k.nkn.append(c.nkn_bp if i == 0 else c.nkn_pp)
+        k.bmv.append(torch.where(on, bounce - vbias, _BIG))
+        k.pair_on.append(on)
 
     # ---- wall precompute: order [bottom, top, left, right], stored
     # negated (v_bias - bounce) with inactive sentinel -BIG ---------------
-    wnbmv = [[None] * n for _ in range(4)]
     for i in range(n):
         d = [
             radii[i] - py[i],
@@ -161,82 +176,109 @@ def _solve_contacts_scalar(
         for wi in range(4):
             wbounce = e_w * vrn0_w[wi].clamp_max(0.0)
             wvbias = c.bias_coef * (d[wi] - c.slop).clamp_min(0.0)
-            wnbmv[wi][i] = torch.where(d[wi] > 0, wvbias - wbounce, -_BIG)
+            on = _wall_active(d[wi])
+            k.wn[wi][i] = torch.where(on, wvbias - wbounce, -_BIG)
+            k.wall_on[wi][i] = on
+    return k
 
+
+def _pair_update(k: SimpleNamespace, p: int, vx: list, vy: list, jn, jt, mu):
+    """Pair p's normal then friction impulse (sequential impulses, spec
+    item 3) on the velocity lists, in place; returns the accumulators
+    (jn', jt'). With the inactive sentinel it changes nothing but the sign
+    of a zero."""
+    i, j = k.pairs[p]
+    nx, ny = k.nx[p], k.ny[p]
+    nxi, nyi, nxj, nyj = k.nxi[p], k.nyi[p], k.nxj[p], k.nyj[p]
+    vrn = (vx[j] - vx[i]) * nx + (vy[j] - vy[i]) * ny
+    jn_new = (jn + k.nkn[p] * (vrn + k.bmv[p])).clamp_min(0.0)
+    dj = jn_new - jn
+    vx[i] = vx[i] - dj * nxi
+    vy[i] = vy[i] - dj * nyi
+    vx[j] = vx[j] + dj * nxj
+    vy[j] = vy[j] + dj * nyj
+    # friction, tangent t = (-ny, nx)
+    vrt = (vy[j] - vy[i]) * nx - (vx[j] - vx[i]) * ny
+    djt = k.nkn[p] * vrt
+    lim = mu * jn_new
+    jt_new = torch.clamp(jt + djt, min=-lim, max=lim)
+    djt = jt_new - jt
+    vx[i] = vx[i] + djt * nyi
+    vy[i] = vy[i] - djt * nxi
+    vx[j] = vx[j] - djt * nyj
+    vy[j] = vy[j] + djt * nxj
+    return jn_new, jt_new
+
+
+def _wall_update(k: SimpleNamespace, wi: int, i: int, vx: list, vy: list, jv, jtv,
+                 mu):
+    """Wall wi's normal then friction impulse on body i in velocity units
+    (bottom/top act on vy, friction on vx; left/right the other way
+    round), in place; returns (jv', jtv'). With the inactive sentinel it
+    changes nothing but the sign of a zero."""
+    wn = k.wn[wi][i]
+    if wi == 0:
+        dv0 = wn - vy[i]
+    elif wi == 1:
+        dv0 = wn + vy[i]
+    elif wi == 2:
+        dv0 = wn - vx[i]
+    else:
+        dv0 = wn + vx[i]
+    jv_new = (jv + dv0).clamp_min(0.0)
+    dv = jv_new - jv
+    if wi == 0:
+        vy[i] = vy[i] + dv
+    elif wi == 1:
+        vy[i] = vy[i] - dv
+    elif wi == 2:
+        vx[i] = vx[i] + dv
+    else:
+        vx[i] = vx[i] - dv
+    if wi == 0:
+        dvt0 = vx[i]
+    elif wi == 1:
+        dvt0 = -vx[i]
+    elif wi == 2:
+        dvt0 = -vy[i]
+    else:
+        dvt0 = vy[i]
+    limv = mu * jv_new
+    jt_new = torch.clamp(jtv + dvt0, min=-limv, max=limv)
+    dvt = jt_new - jtv
+    if wi == 0:
+        vx[i] = vx[i] - dvt
+    elif wi == 1:
+        vx[i] = vx[i] + dvt
+    elif wi == 2:
+        vy[i] = vy[i] + dvt
+    else:
+        vy[i] = vy[i] - dvt
+    return jv_new, jt_new
+
+
+def _solve_contacts_scalar(
+    px: list, py: list, vx: list, vy: list, params: EnvParams, dtype,
+) -> tuple[list, list]:
+    """Spec items 2-3 in scalar-SSA form: returns post-solve (vx, vy)."""
+    mu = physics_constants(params, dtype).mu
+    n = len(px)
+    k = _contact_setup(px, py, vx, vy, params, dtype)
     vx, vy = list(vx), list(vy)
     zl = torch.zeros_like(vx[0])
-    jn_cc = [zl] * len(pairs)
-    jt_cc = [zl] * len(pairs)
+    jn_cc = [zl] * len(k.pairs)
+    jt_cc = [zl] * len(k.pairs)
     jv_w = [[zl] * n for _ in range(4)]
     jtv_w = [[zl] * n for _ in range(4)]
     for _ in range(params.solver_iterations):
         # -- circle-circle, sequential in fixed lexicographic order -------
-        for p, (i, j) in enumerate(pairs):
-            nx, ny = nx_p[p], ny_p[p]
-            nxi, nyi, nxj, nyj = nxi_p[p], nyi_p[p], nxj_p[p], nyj_p[p]
-            vrn = (vx[j] - vx[i]) * nx + (vy[j] - vy[i]) * ny
-            jn_new = (jn_cc[p] + nkn_p[p] * (vrn + bmv_p[p])).clamp_min(0.0)
-            dj = jn_new - jn_cc[p]
-            jn_cc[p] = jn_new
-            vx[i] = vx[i] - dj * nxi
-            vy[i] = vy[i] - dj * nyi
-            vx[j] = vx[j] + dj * nxj
-            vy[j] = vy[j] + dj * nyj
-            # friction, tangent t = (-ny, nx)
-            vrt = (vy[j] - vy[i]) * nx - (vx[j] - vx[i]) * ny
-            djt = nkn_p[p] * vrt
-            lim = mu * jn_new
-            jt_new = torch.clamp(jt_cc[p] + djt, min=-lim, max=lim)
-            djt = jt_new - jt_cc[p]
-            jt_cc[p] = jt_new
-            vx[i] = vx[i] + djt * nyi
-            vy[i] = vy[i] - djt * nxi
-            vx[j] = vx[j] - djt * nyj
-            vy[j] = vy[j] + djt * nxj
-
-        # -- walls in velocity units; bottom/top act on vy (normal) and vx
-        # (friction), left/right the other way round -----------------------
+        for p in range(len(k.pairs)):
+            jn_cc[p], jt_cc[p] = _pair_update(k, p, vx, vy, jn_cc[p], jt_cc[p], mu)
+        # -- walls in velocity units ---------------------------------------
         for wi in range(4):
             for i in range(n):
-                if wi == 0:
-                    dv0 = wnbmv[wi][i] - vy[i]
-                elif wi == 1:
-                    dv0 = wnbmv[wi][i] + vy[i]
-                elif wi == 2:
-                    dv0 = wnbmv[wi][i] - vx[i]
-                else:
-                    dv0 = wnbmv[wi][i] + vx[i]
-                jv_new = (jv_w[wi][i] + dv0).clamp_min(0.0)
-                dv = jv_new - jv_w[wi][i]
-                jv_w[wi][i] = jv_new
-                if wi == 0:
-                    vy[i] = vy[i] + dv
-                elif wi == 1:
-                    vy[i] = vy[i] - dv
-                elif wi == 2:
-                    vx[i] = vx[i] + dv
-                else:
-                    vx[i] = vx[i] - dv
-                if wi == 0:
-                    dvt0 = vx[i]
-                elif wi == 1:
-                    dvt0 = -vx[i]
-                elif wi == 2:
-                    dvt0 = -vy[i]
-                else:
-                    dvt0 = vy[i]
-                limv = mu * jv_new
-                jt_new = torch.clamp(jtv_w[wi][i] + dvt0, min=-limv, max=limv)
-                dvt = jt_new - jtv_w[wi][i]
-                jtv_w[wi][i] = jt_new
-                if wi == 0:
-                    vx[i] = vx[i] - dvt
-                elif wi == 1:
-                    vx[i] = vx[i] + dvt
-                elif wi == 2:
-                    vy[i] = vy[i] + dvt
-                else:
-                    vy[i] = vy[i] - dvt
+                jv_w[wi][i], jtv_w[wi][i] = _wall_update(
+                    k, wi, i, vx, vy, jv_w[wi][i], jtv_w[wi][i], mu)
     return vx, vy
 
 

@@ -59,6 +59,36 @@ def random_bodies(rng, params, b, near_ball=False):
     return pos.astype(np.float32), vel.astype(np.float32)
 
 
+def contact_states(params, b, seed):
+    """``b`` envs (pos, vel [b, n, 2] numpy) in four kinds, interleaved in
+    runs of 7 so that warps mix them: crowded (every body within a few
+    radii of the centre, overlapping), on the walls (each body touching
+    or pressed into a side), the ball in either goal mouth moving out, and
+    game-like spreads (random_bodies)."""
+    rng = np.random.default_rng(seed)
+    n, r = params.n_bodies, params.player_radius
+    pos, vel = random_bodies(rng, params, b)
+    w, h, mid = params.width, params.height, params.height / 2.0
+    for e in range(b):
+        kind = e // 7 % 4
+        if kind == 0:
+            pos[e] = [w / 2, mid] + rng.uniform(-2.5 * r, 2.5 * r, (n, 2))
+        elif kind == 1:
+            side = rng.integers(0, 4, n)
+            depth = rng.uniform(-2.0, 2.0, n) + r
+            along = rng.uniform(0.0, 1.0, n)
+            pos[e, :, 0] = np.where(side == 0, depth, np.where(
+                side == 1, w - depth, along * w))
+            pos[e, :, 1] = np.where(side == 2, depth, np.where(
+                side == 3, h - depth, along * h))
+        elif kind == 2:
+            gx = w - 2.0 if e % 2 else 2.0
+            pos[e, 0] = [gx, mid + rng.uniform(-0.4, 0.4) * params.goal_size]
+            vel[e, 0] = [300.0 if e % 2 else -300.0, rng.normal(0.0, 50.0)]
+    vel[rng.random((b, n)) < 0.1] = 0.0                 # resting bodies
+    return pos.astype(np.float32), vel.astype(np.float32)
+
+
 def random_forces(rng, params, b):
     """Per-body forces from the action magnitudes, ball zero."""
     mf = params.move_force

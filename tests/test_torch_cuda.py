@@ -19,9 +19,13 @@ action a near tie, floats on the agreeing envs within their bounds
 (64, 64) in both modes (per leaf rel-L2, bounds with their reasons at
 the test) and one train_iteration on the collect and update kernels.
 The recurrent collect in table and Philox modes from non-zero carries
-(3v3 ragged, custom, 2v2 at H = 128): integers and sampled actions
-exact, floats and carries 1e-5, the input carries unchanged; one
-recurrent PPO iteration on it.
+(3v3 ragged, custom, 2v2 at H = 128): the float32 route with integers and
+sampled actions exact, floats and carries 1e-5, the input carries
+unchanged; the bfloat16 route (tensor cores) at the main shape, the
+custom params and a ragged batch on the uniforms table, as the policy
+kernels' bf16 route (bounds at the test); one recurrent PPO iteration on
+it. The random rollout also on states built for the culled contact
+solver (crowded, on the walls, in the goal mouth, ragged): bitwise.
 """
 
 import importlib
@@ -81,6 +85,49 @@ def test_kernel_matches_plain(cuda, params):
         torch.testing.assert_close(ksf, psf, rtol=1e-4, atol=1e-3)
         torch.testing.assert_close(krew, prew, rtol=1e-4, atol=1e-4)
         assert torch.equal(ksi, psi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [
+    EnvParams(players_per_team=2), EnvParams(players_per_team=5, max_steps=4),
+    CUSTOM,
+], ids=["2v2", "5v5", "custom"])
+def test_kernel_bitwise_on_contact_states(cuda, params):
+    """The culled env step (futbol_step.cuh: each pair or wall update runs
+    where some lane of the warp needs it) on states built to exercise it:
+    crowded, on every wall, balls in the goal mouth, mixed within warps,
+    on a batch that is not a multiple of 32. Table and Philox modes and
+    the replay: bitwise equal to the plain version (signed zeros compare
+    equal)."""
+    from gym_futbol_tpu_torch.interop import state_from_numpy
+
+    from _torch_cases import contact_states
+
+    n_envs = 32 * 7 + 19
+    pos, vel = contact_states(params, n_envs, seed=11)
+    rng = np.random.default_rng(12)
+    poss = np.where(rng.random(n_envs) < 0.5,
+                    rng.integers(1, params.n_players + 1, n_envs), -1).astype(np.int32)
+    score = np.zeros((n_envs, 2), np.int32)
+    t = rng.integers(0, params.max_steps, n_envs).astype(np.int32)
+    sf, si = ops.pack_state(state_from_numpy(pos, vel, poss, score, t, device=cuda),
+                            params)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    u = torch.rand((T, tfr.n_draws_per_step(params), n_envs), generator=gen,
+                   device=cuda)
+    acts = torch.from_numpy(
+        random_actions(rng, params, (T, n_envs))
+        .reshape(T, n_envs, -1).transpose(0, 2, 1).copy()).to(cuda)
+    cases = [
+        (ops.fused_rollout(sf, si, 0, params, T, uniforms=u),
+         tfr.fused_rollout_reference(sf, si, params, uniforms=u)),
+        (ops.fused_rollout(sf, si, 31, params, T),
+         tfr.fused_rollout_reference(sf, si, params, T, seed=31)),
+        (ops.fused_rollout_replay(sf, si, acts, params),
+         tfr.fused_rollout_reference(sf, si, params, actions=acts)),
+    ]
+    for got, want in cases:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -429,28 +476,79 @@ def _recurrent_case(cuda, params, hidden, lstm, n_envs, seed=4):
     (EnvParams(players_per_team=2, max_steps=5), (128,), 128, B),
 ], ids=["3v3-ragged", "custom", "2v2-128"])
 def test_recurrent_kernel_matches_plain(cuda, params, hidden, lstm, n_envs):
-    """Table and Philox modes from non-zero carries, episodes ending in
-    the window: integers and sampled actions exact, floats (the carries
-    among them) within 1e-5; the input carries left unchanged."""
+    """The float32 route (the exact one), table and Philox modes from
+    non-zero carries, episodes ending in the window: integers and sampled
+    actions exact, floats (the carries among them) within 1e-5; the input
+    carries left unchanged."""
     torch.backends.cuda.matmul.allow_tf32 = False
     sf, si, w, cc, hh, u = _recurrent_case(cuda, params, hidden, lstm, n_envs)
     c0, h0 = cc.clone(), hh.clone()
-    before = ops.LAUNCHES["fused_recurrent_collect"]
+    before = ops.LAUNCHES["fused_recurrent_collect_f32"]
+    f32 = dict(compute_dtype=torch.float32)
     cases = [
-        (ops.fused_recurrent_collect(sf, si, w, cc, hh, 0, params, T, uniforms=u),
+        (ops.fused_recurrent_collect(sf, si, w, cc, hh, 0, params, T, uniforms=u,
+                                     **f32),
          tfrc.fused_recurrent_collect_reference(sf, si, w, cc, hh, params,
-                                                uniforms=u)),
-        (ops.fused_recurrent_collect(sf, si, w, cc, hh, 43, params, T),
+                                                uniforms=u, **f32)),
+        (ops.fused_recurrent_collect(sf, si, w, cc, hh, 43, params, T, **f32),
          tfrc.fused_recurrent_collect_reference(sf, si, w, cc, hh, params, T,
-                                                seed=43)),
+                                                seed=43, **f32)),
     ]
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["fused_recurrent_collect"] == before + 2
+    assert ops.LAUNCHES["fused_recurrent_collect_f32"] == before + 2
     for got, want in cases:
         _assert_policy_outputs(got, want)
     assert torch.equal(cc, c0) and torch.equal(hh, h0)
     assert cases[0][0][8].any()                          # episode ends
     assert (cases[0][0][2][:, 4 * params.n_bodies + 2:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params,hidden,lstm,n_envs", [
+    (EnvParams(players_per_team=3), (128,), 128, 16384),      # the main shape
+    (CUSTOM, (32, 16), 16, B),
+    (EnvParams(players_per_team=3, max_steps=6), (64,), 36, 1000),
+], ids=["3v3-main", "custom", "3v3-ragged"])
+def test_recurrent_kernel_bf16_matches_plain(cuda, params, hidden, lstm, n_envs,
+                                            monkeypatch):
+    """The bfloat16 route (recurrent_tc_kernel, tensor cores) against the
+    plain bfloat16 version on the same uniforms from non-zero carries: on
+    the envs whose sampled actions all agree over the window, logp, value,
+    last_value and both carries within 1e-2 (the f32 sums in another
+    order, which can move a rounded activation by one bf16 ulp), the
+    env's outputs within 1e-5 and integers exact; every differing action
+    a near tie (within twice the measured logp error of a CDF boundary);
+    the input carries unchanged; one launch of the bf16 route."""
+    sf, si, w, cc, hh, u = _recurrent_case(cuda, params, hidden, lstm, n_envs)
+    c0, h0 = cc.clone(), hh.clone()
+    before = dict(ops.LAUNCHES)
+    got = ops.fused_recurrent_collect(sf, si, w, cc, hh, 0, params, T, uniforms=u)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_recurrent_collect"] == (
+        before["fused_recurrent_collect"] + 1)
+    assert ops.LAUNCHES["fused_recurrent_collect_f32"] == (
+        before["fused_recurrent_collect_f32"])
+    calls = []
+    sample_with_logp = tfrc.sample_with_logp
+    monkeypatch.setattr(tfrc, "sample_with_logp", lambda lg, g, uu: (
+        calls.append((lg.clone(), uu.clone())), sample_with_logp(lg, g, uu))[1])
+    want = tfrc.fused_recurrent_collect_reference(sf, si, w, cc, hh, params,
+                                                  uniforms=u)
+    agree = (got[3] == want[3]).all(0).all(0) & (got[4] == want[4]).all(0).all(0)
+    eps = (got[5][..., agree] - want[5][..., agree]).abs().max().item()
+    good, ties, miss = _near_ties(got, want, calls, (3, 4), eps)
+    print(f"near ties: {ties} ({miss} mismatched), logp error {eps:.3g}")
+    for i in (5, 6, 9, 10, 11):        # logp, value, last_value, carries
+        torch.testing.assert_close(got[i][..., good], want[i][..., good],
+                                   rtol=0, atol=1e-2)
+    for i in (0, 1, 2, 7, 8):          # states, obs, rewards, dones
+        if got[i].dtype.is_floating_point:
+            torch.testing.assert_close(got[i][..., good], want[i][..., good],
+                                       rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(got[i][..., good], want[i][..., good])
+    assert good.float().mean() > 0.9
+    assert torch.equal(cc, c0) and torch.equal(hh, h0)
 
 
 @pytest.mark.cuda

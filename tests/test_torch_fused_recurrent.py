@@ -130,7 +130,8 @@ def test_reference_matches_jax_kernel(ref):
                                              device="cpu"), params)
     got = tfr.fused_recurrent_collect_reference(
         sf, si, tfr.flatten_recurrent_actor_critic(_port_model(variables, ref)),
-        torch.from_numpy(cc), torch.from_numpy(hh), params, uniforms=table)
+        torch.from_numpy(cc), torch.from_numpy(hh), params, uniforms=table,
+        compute_dtype=torch.float32)
     _assert_outputs(got, want)
     done = got[8].numpy()
     assert done.any() and len(np.unique(got[3].numpy())) > 4
