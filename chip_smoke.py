@@ -37,7 +37,20 @@ port's main paths:
   train_iteration_recurrent_ppo at that shape (T=16), one recurrent A2C
   iteration and the training CLI with --recurrent, then K5's times in
   both routes, its layout plan against the other layouts and a cuBLAS
-  yardstick.
+  yardstick;
+- phase 17, normalised PPO through K2 and K3: the normalised fused
+  collect (statistics folded into K2's first layer, the buffer's moments,
+  the post-hoc reward scaling) against its plain version (float32
+  bitwise; bf16 by phase 7's rules on the folded weights), the fold's
+  bf16-vs-f32 log-prob error beside the unnormalised one, K3 on folded
+  weights against its plain version and, unfolded, against autograd on
+  the z-scored buffer (3v3, a ragged 1000 envs, T=16, hidden (256, 256),
+  statistics from 2 plain normalised iterations); the normalised
+  train_iteration at config 4 split into K2, obs moments, post-hoc reward
+  norm, GAE and K3, beside phase 12's; a bitwise resume through
+  utils.checkpoint (2 iterations, save, restore into a fresh runner, 1
+  more, against 3); the CLI checkpointed and logged for 4 iterations,
+  then resumed to 6.
 Phase 6 also measures the contact solver's active share (the pairs and
 walls the culled env step updates) at config 3, the 5v5 scale and config
 4, and the env step's operation count, and so every bound that counts
@@ -130,6 +143,13 @@ BR, TR, HR, LSTM_R = 16384, 16, (128,), 128
 # TF32 off, another summation order, the carry fed back over 16 steps):
 # logp, value and the final carries within 5e-5.
 K5_FORCED_ATOL = 5e-5
+# Normalised PPO (phase 17): the parity shape (3v3, a ragged 1000 envs,
+# T=16, hidden (256, 256), K3 in blocks of 128 samples: 32000 is no
+# multiple of 1024) and the resume shape (2048 envs). The fused collect's
+# statistics against the plain version's: relative 1e-5 (the same
+# reductions on equal buffers: bitwise in practice).
+BN, TN, BN_RESUME, BLOCK_N = 1000, 16, 2048, 128
+NORM_STAT_REL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -920,6 +940,8 @@ def update_phases(dev, custom) -> dict:
     phase("12 main path", "metrics per iteration: " + "; ".join(
         f"{k} " + " ".join(f"{v:.5g}" for v in vs) for k, vs in values.items()))
     phase("12 main path", f"kernel launches in the main path: {launches}")
+    main12 = dict(ms=ms, collect=ms_collect, update=ms_update, launches=launches,
+                  iters=n_iters + 1)
 
     argv = ["--ppt", "3", "--envs", str(B4), "--iters", "2", "--fused-collect"]
     t0 = time.perf_counter()
@@ -1029,7 +1051,7 @@ def update_phases(dev, custom) -> dict:
             "ms": ms_bf16, "plain_ms": plain_bf16, "bound_ms": bound_bf16[0],
             "bound_by": bound_bf16[1], "library_ms": None,
             "unit": f"ms per launch, bfloat16, one config-4 minibatch of {m} "
-                    f"samples (3v3, hidden {H4})"}
+                    f"samples (3v3, hidden {H4})"}, main12
 
 
 def rounded_unroll(model, carry, x, done):
@@ -1405,6 +1427,357 @@ def recurrent_phases(dev, custom, shares) -> dict:
                     f"H {LSTM_R}, bfloat16"}
 
 
+def runner_leaves(x, name="runner"):
+    """Every tensor and number a training runner holds, with its path:
+    the model's and the optimiser's state (Adam's moments, step counts and
+    count), the env state, obs, the normalisers' statistics and the
+    generator's state."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Generator):
+        yield name, x.get_state()
+    elif isinstance(x, (torch.Tensor, int, float)) or x is None:
+        yield name, x
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            yield from runner_leaves(v, f"{name}[{i}]")
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from runner_leaves(v, f"{name}.{k}")
+    elif hasattr(x, "state_dict"):
+        yield from runner_leaves(x.state_dict(), name)
+    else:
+        for f in dataclasses.fields(x):
+            yield from runner_leaves(getattr(x, f.name), f"{name}.{f.name}")
+
+
+def stat_rel(a, b) -> float:
+    """Largest relative difference of two normalisers' statistics."""
+    import torch
+
+    return max((x - y).abs().max().item() / max(y.abs().max().item(), 1e-30)
+               for x, y in zip(vars(a).values(), vars(b).values())
+               if isinstance(x, torch.Tensor))
+
+
+def normalized_phases(dev, main12) -> None:
+    """Phase 17: normalised PPO through K2 and K3. Parity of the
+    normalised fused collect (statistics folded into K2's first layer,
+    the buffer's moments, the post-hoc reward scaling) and of K3 with the
+    fold and the unfold against their plain versions and autograd; the
+    normalised train_iteration at config 4 with its split beside phase
+    12's; a bitwise resume through utils.checkpoint on the card; the CLI's
+    checkpoint resume and metrics log."""
+    import shutil
+
+    import torch
+
+    from gym_futbol_tpu_torch import EnvParams, obs_size, ops, ppo
+    from gym_futbol_tpu_torch.models.policy import (
+        ActorCritic,
+        action_log_prob_and_entropy_packed,
+    )
+    from gym_futbol_tpu_torch.utils.checkpoint import Checkpointer
+
+    fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+    fu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    p4 = EnvParams(players_per_team=3)
+    f = obs_size(p4)
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, "build", "chip_smoke_17")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    # 17 parity: statistics from 2 iterations of plain normalised training
+    gen = torch.Generator(device=dev).manual_seed(17)
+    model = ActorCritic(3, f, H4, device=dev)
+    cfg = ppo.PPOConfig(rollout_steps=TN, shuffle_block=BLOCK_N)
+    runner = ppo.init_runner(gen, model, p4, cfg, BN, normalize_obs=True,
+                             normalize_reward=True)
+    for _ in range(2):
+        runner, _ = ppo.train_iteration(runner, p4, cfg,
+                                        collect_fn=ppo.make_normalized_collect())
+    mean, inv_std = ppo._obs_norm_scales(runner.obs_norm)
+    w_plain = fc.flatten_actor_critic(model)
+    w_fold = ppo.fold_obs_norm(w_plain, mean, inv_std)
+    phase("17 parity", f"statistics after 2 plain normalised iterations, 3v3 "
+          f"B={BN} T={TN} hidden {H4}: inv_std {inv_std.min().item():.4g} .. "
+          f"{inv_std.max().item():.6g}, obs count {runner.obs_norm.count.item():.6g}, "
+          f"return variance {runner.rew_norm.var.item():.6g}; largest |b1| "
+          f"{w_plain[1].abs().max().item():.4g}, folded |b1'| "
+          f"{w_fold[1].abs().max().item():.6g}, |W1'| {w_fold[0].abs().max().item():.6g}")
+    check(bool((inv_std - 1).abs().max() > 0.1), "17: the statistics are the identity")
+
+    # the whole normalised fused collect, f32 route, against the same
+    # collect over K2's plain version: one seed from the same generator
+    def plain_collect(sf, si, w, seed, params, n_steps, uniforms=None,
+                      compute_dtype=bf16):
+        return fc.fused_collect_reference(sf, si, w, params, n_steps, seed=seed,
+                                          compute_dtype=compute_dtype)
+
+    g_state = runner.generator.get_state()
+    kern = ppo.collect_rollout_fused(runner, p4, cfg, compute_dtype=f32,
+                                     normalize_obs=True, normalize_reward=True)
+    runner.generator.set_state(g_state)
+    orig = fc.fused_collect
+    fc.fused_collect = plain_collect
+    try:
+        plain = ppo.collect_rollout_fused(runner, p4, cfg, compute_dtype=f32,
+                                          normalize_obs=True, normalize_reward=True)
+    finally:
+        fc.fused_collect = orig
+    (k_run, k_traj, k_last), (p_run, p_traj, p_last) = kern, plain
+    same = {name: torch.equal(getattr(k_traj, name), getattr(p_traj, name))
+            for name in ppo.TRAJ_FIELDS}
+    same["last_value"] = torch.equal(k_last, p_last)
+    rels = {"obs_norm": stat_rel(k_run.obs_norm, p_run.obs_norm),
+            "rew_norm": stat_rel(k_run.rew_norm, p_run.rew_norm)}
+    phase("17 parity", f"collect_rollout_fused(normalize_obs, normalize_reward), "
+          f"float32, against its plain version: bitwise {same}; statistics "
+          f"max relative error {rels} (<= {NORM_STAT_REL}); traj.norm is the "
+          f"lagged statistics {k_traj.norm is runner.obs_norm}")
+    check(all(same.values()) and max(rels.values()) <= NORM_STAT_REL
+          and k_traj.norm is runner.obs_norm, "17: the normalised f32 collect")
+    check(bool(torch.isfinite(k_traj.reward).all())
+          and not torch.equal(k_run.obs_norm.mean, runner.obs_norm.mean),
+          "17: scaled rewards or merged statistics")
+
+    # bf16 route, K2 on the folded weights against its plain version, as
+    # phase 7 holds it (table and Philox modes)
+    sf, si = ops.pack_state(runner.env_state, p4)
+    u = torch.rand((TN, ops.n_draws_per_step(p4), BN), generator=gen, device=dev)
+    bf16_err = 0.0
+    for name, seed, kw, ref_kw in (("table", 0, dict(uniforms=u), dict(uniforms=u)),
+                                   ("Philox", 9, {}, dict(n_steps=TN, seed=9))):
+        k_out = ops.fused_collect(sf, si, w_fold, seed, p4, TN, compute_dtype=bf16,
+                                  **kw)
+        calls = []
+        orig = recording(fc, "sample_with_logp", calls)
+        try:
+            p_out = fc.fused_collect_reference(sf, si, w_fold, p4, compute_dtype=bf16,
+                                               **ref_kw)
+        finally:
+            fc.sample_with_logp = orig
+        err, _, _ = compare_policy_bf16(
+            k_out, p_out, calls, f"17 folded weights B={BN} T={TN} bf16, {name}",
+            (3, 4), (5, 6, 9), (0, 1, 2, 7, 8))
+        bf16_err = max(bf16_err, err)
+    # what the fold costs in bf16: logp of the buffer's actions through
+    # the bf16 forward against the f32 one, folded weights on raw obs and
+    # (as in phase 7) the unfolded weights on the same obs
+    x = k_traj.obs[:f]
+    dirs, acts = ppo._flatten_tm(k_traj.dirs), ppo._flatten_tm(k_traj.acts)
+
+    def logp(w, mode):
+        rows, _ = fc._forward(x, w, mode)
+        return action_log_prob_and_entropy_packed(rows.T, dirs, acts)[0]
+
+    gap = {k: (logp(w, bf16) - logp(w, f32)).abs().max().item()
+           for k, w in (("normalised", w_fold), ("unnormalised", w_plain))}
+    phase("17 parity", f"bf16-vs-f32 logp of the buffer's {x.shape[1]} samples, "
+          f"max |err|: normalised (folded) {gap['normalised']:.4g}, unnormalised "
+          f"{gap['unnormalised']:.4g}; largest bf16 kernel-vs-plain error "
+          f"{bf16_err:.3g}")
+
+    # K3 on the normalised buffer: the folded weights in, the gradients
+    # unfolded, against the plain version and against autograd of
+    # ppo_loss on the buffer z-scored with the same statistics. The
+    # weights are those after one update_epochs_fused over the buffer
+    # (through traj.norm), so that the ratio and the value leave 1 and
+    # their old values, as in the main path's later minibatches.
+    adv, ret = ppo.compute_gae(k_traj, k_last, cfg)
+    ppo.update_epochs_fused(model, runner.optimizer, k_traj, adv, ret, gen, cfg)
+    scales = ppo._obs_norm_scales(k_traj.norm)
+    w_fold = ppo.fold_obs_norm(fc.flatten_actor_critic(model), *scales)
+    n_blocks = k_traj.obs.shape[1] // BLOCK_N
+    rows = [ppo._flatten_tm(a).reshape(n_blocks, BLOCK_N).contiguous() for a in (
+        k_traj.dirs, k_traj.acts, k_traj.logp, k_traj.value, adv, ret)]
+    idx = torch.randperm(n_blocks, generator=gen, device=dev)[:n_blocks // 4]
+    idx = idx.to(torch.int32).contiguous()
+    adv_mb = rows[4][idx]
+    adv_n = (adv_mb - adv_mb.mean()) / (adv_mb.std(correction=0) + 1e-8)
+    args = (w_fold, k_traj.obs.contiguous(), *rows[:4], rows[5], adv_n, idx)
+    kw = dict(n_torso=len(H4), clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef,
+              ent_coef=cfg.ent_coef, block=BLOCK_N)
+    got, terms = {}, {}
+    for mode, tol in ((bf16, K3_BF16_REL), (f32, K3_F32_REL)):
+        route = fu.update_plan(k_traj.obs.shape[0], H4, w_fold[-4].shape[1],
+                               idx.shape[0] * BLOCK_N, mode)["route"]
+        kg, ks = ops.fused_minibatch_grad(*args, **kw, compute_dtype=mode)
+        pg, terms[mode] = fu.fused_minibatch_grad_reference(
+            *args, **kw, compute_dtype=mode, per_sample=True)
+        sums = {k: terms[mode][k].sum() for k in fu.METRICS}
+        compare_update((kg, ks), (pg, sums), terms[mode],
+                       f"17 K3 on folded weights, {str(mode)[6:]} ({route})", tol,
+                       K3_METRIC_REL)
+        got[mode] = (ppo.unfold_obs_norm_grads(kg, *scales), ks)
+        compare_update(got[mode], (ppo.unfold_obs_norm_grads(pg, *scales), sums),
+                       terms[mode], f"17 K3 unfolded, {str(mode)[6:]}", tol,
+                       K3_METRIC_REL)
+    m = idx.shape[0] * BLOCK_N
+    sel = idx.long()
+    obs = k_traj.obs.reshape(k_traj.obs.shape[0], -1, BLOCK_N)[:, sel].reshape(-1, m)
+    z = (obs[:f] - scales[0][:, None]) * scales[1][:, None]
+    model.zero_grad()
+    loss, lm = ppo.ppo_loss(model, z, *(a[sel].reshape(m) for a in rows[:4]),
+                            adv_n.reshape(m), rows[5][sel].reshape(m), cfg)
+    loss.backward()
+    auto = (tuple(g for layer in model.dense_layers() for g in (
+        layer.weight.grad.t(), layer.bias.grad[:, None])),
+        {k: lm[k].detach() * m for k in fu.METRICS})
+    compare_update(got[f32], auto, terms[f32], "17 K3 unfolded, float32, against "
+                   "autograd of ppo_loss on the z-scored buffer", K3_AUTOGRAD_REL,
+                   K3_METRIC_REL)
+    model.zero_grad()
+    phase("17 parity", f"K3 minibatch of {m} samples after one normalised "
+          f"update_epochs_fused: share of samples whose gradient the clip zeroes, "
+          f"surrogate {terms[bf16]['pg_clip'].mean().item():.4g}, value "
+          f"{terms[bf16]['v_clip'].mean().item():.4g}")
+
+    # 17 main path: the normalised train_iteration at config 4, both
+    # kernels in bf16, split by wrapping what it calls
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = ActorCritic(3, f, H4, device=dev)
+    cfg = ppo.PPOConfig(rollout_steps=T4)
+    runner = ppo.init_runner(gen, model, p4, cfg, B4, normalize_obs=True,
+                             normalize_reward=True)
+    spans = {k: [] for k in ("collect", "K2", "moments", "posthoc", "GAE", "update")}
+
+    def timed(fn, name):
+        def run(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    wrapped = {(fc, "fused_collect"): "K2", (ppo, "merge_buffer_moments"): "moments",
+               (ppo, "posthoc_reward_norm"): "posthoc", (ppo, "compute_gae"): "GAE"}
+    saved = {key: getattr(*key) for key in wrapped}
+    step = functools.partial(
+        ppo.train_iteration,
+        collect_fn=timed(ppo.make_fused_normalized_collect(), "collect"),
+        update_fn=timed(ppo.update_epochs_fused, "update"))
+    n_iters = 3
+    ops.reset_launch_counts()
+    for (mod, name), label in wrapped.items():
+        setattr(mod, name, timed(saved[(mod, name)], label))
+    try:
+        runner, _ = step(runner, p4, cfg)                        # warm-up
+        totals, history = [], []
+        for _ in range(n_iters):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            runner, metrics = step(runner, p4, cfg)
+            end.record()
+            totals.append((start, end))
+            history.append(metrics)
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    launches = {k: ops.LAUNCHES[k] for k in (
+        "fused_collect", "fused_minibatch_grad", "fused_collect_f32")}
+    check(launches["fused_collect"] == n_iters + 1
+          and launches["fused_minibatch_grad"] == 16 * (n_iters + 1)
+          and launches["fused_collect_f32"] == 0,
+          f"17: the normalised main path's launches: {launches}")
+    values = {k: [float(x[k]) for x in history] for k in history[0]}
+    check(all(math.isfinite(v) for vs in values.values() for v in vs),
+          f"17: non-finite metrics {values}")
+    ms = sum(s.elapsed_time(e) for s, e in totals) / n_iters
+    split = {k: sum(s.elapsed_time(e) for s, e in v[1:]) / n_iters
+             for k, v in spans.items()}
+    rest = split["collect"] - split["K2"] - split["moments"] - split["posthoc"]
+    phase("17 main path", f"train_iteration, normalised (make_fused_normalized_"
+          f"collect, update_epochs_fused bfloat16), 3v3 B={B4} T={T4} hidden {H4}: "
+          f"{ms:.3f} ms/iteration, {B4 * T4 / ms * 1e3:.6g} env-steps/s ({n_iters} "
+          f"iterations after 1 warm-up); collect {split['collect']:.3f} ms (K2 "
+          f"{split['K2']:.3f}, obs moments {split['moments']:.3f}, posthoc reward "
+          f"norm {split['posthoc']:.3f}, the rest {rest:.3f}), GAE "
+          f"{split['GAE']:.3f}, update {split['update']:.3f}, the rest "
+          f"{ms - split['collect'] - split['GAE'] - split['update']:.3f}; "
+          f"launches {launches}")
+    phase("17 main path", f"beside phase 12's unnormalised iteration in this run: "
+          f"{main12['ms']:.3f} ms/iteration (collect {main12['collect']:.3f}, "
+          f"update {main12['update']:.3f}), launches {main12['launches']} over "
+          f"{main12['iters']} iterations")
+    phase("17 main path", "metrics per iteration: " + "; ".join(
+        f"{k} " + " ".join(f"{v:.5g}" for v in vs) for k, vs in values.items()))
+
+    # 17 resume: 3 iterations against 2 + save + restore into a freshly
+    # built runner + 1, bitwise
+    cfg = ppo.PPOConfig(rollout_steps=TN)
+    step = functools.partial(ppo.train_iteration,
+                             collect_fn=ppo.make_fused_normalized_collect(),
+                             update_fn=ppo.update_epochs_fused)
+
+    def build(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return ppo.init_runner(g, ActorCritic(3, f, H4, device=dev), p4, cfg,
+                               BN_RESUME, normalize_obs=True, normalize_reward=True)
+
+    ref = build(0)
+    for _ in range(3):
+        ref, _ = step(ref, p4, cfg)
+    run = build(0)
+    for _ in range(2):
+        run, _ = step(run, p4, cfg)
+    ck = Checkpointer(os.path.join(scratch, "resume"))
+    ck.save(run, 2)
+    resumed, it = ck.restore_latest(build(1))
+    resumed, _ = step(resumed, p4, cfg)
+    a, b = dict(runner_leaves(resumed)), dict(runner_leaves(ref))
+    differ = [k for k in b if not (torch.equal(a[k], b[k]) if isinstance(
+        b[k], torch.Tensor) else a[k] == b[k])]
+    phase("17 resume", f"3v3 B={BN_RESUME} T={TN} hidden {H4}, normalised, fused, "
+          f"bf16: 3 iterations against 2 + save + restore_latest (step {it}) into a "
+          f"fresh runner + 1: {len(b)} leaves (params, Adam moments and count, env "
+          f"state, obs, generator state, obs_norm, rew_norm), differing {differ}; "
+          f"{len(ck.steps())} checkpoint of "
+          f"{os.path.getsize(os.path.join(scratch, 'resume', 'checkpoint_2.pt'))} bytes")
+    check(it == 2 and a.keys() == b.keys() and not differ, "17: resume not bitwise")
+
+    # 17 CLI: a checkpointed, logged run, then the same resumed to 6
+    d = os.path.join(scratch, "cli")
+    base = ["--ppt", "2", "--envs", "4096", "--hidden", "128", "128",
+            "--fused-collect", "--normalize-obs", "--normalize-reward",
+            "--checkpoint-dir", d, "--checkpoint-every", "2", "--log-dir", d,
+            "--eval-episodes", "512"]
+    outs = []
+    for iters in ("4", "6"):
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "gym_futbol_tpu_torch.train",
+                              *base, "--iters", iters], capture_output=True,
+                             text=True, timeout=600, cwd=root)
+        lines = cli.stdout.splitlines()
+        phase("17 CLI", f"--iters {iters}: exit {cli.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines))
+        check(cli.returncode == 0, f"17: the CLI failed: {cli.stderr[-2000:]}")
+        outs.append(lines)
+    records = [json.loads(x) for x in outs[1] if x.startswith("{")]
+    with open(os.path.join(d, "metrics.jsonl")) as fh:
+        logged = [json.loads(x)["step"] for x in fh]
+    steps = Checkpointer(d).steps()
+    evals = [r for lines in outs for r in map(json.loads, filter(
+        lambda x: x.startswith("{"), lines)) if "eval_vs_random" in r]
+    notes = [[x for x in lines if x.startswith("#")] for lines in outs]
+    phase("17 CLI", f"the runs' notes {notes}; the second run's first record "
+          f"step {records[0].get('step')}; metrics.jsonl steps {logged}; "
+          f"checkpoints {steps}; eval records {len(evals)}")
+    check(notes == [[], ["# resumed from iteration 4"]]
+          and records[0].get("step") == 4 and logged == list(range(6))
+          and steps == [2, 4, 6] and len(evals) == 2,
+          "17: the CLI's resume, log or checkpoints")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (the share of its wall
     time the device was busy, the wall ms, [(kernel, launches, device
@@ -1777,8 +2150,9 @@ def main() -> int:
           f"{bound_k1_5[0]:.6g} ms/step")
 
     policy_record = policy_phases(dev, custom, shares)
-    update_record = update_phases(dev, custom)
+    update_record, main12 = update_phases(dev, custom)
     recurrent_record = recurrent_phases(dev, custom, shares)
+    normalized_phases(dev, main12)
 
     per_step = f"ms per step of the {B3}-env 2v2 batch"
     record = {"kernels": [

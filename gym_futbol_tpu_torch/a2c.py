@@ -33,6 +33,7 @@ from .models.recurrent import (
     reset_carry_where_done,
 )
 from .ppo import (
+    TRAJ_FIELDS,
     RunnerState,
     Transition,
     _both_views,
@@ -94,6 +95,15 @@ class RMSProp:
             nu.copy_((1 - self.decay) * (g * g) + self.decay * nu)
             p.add_(-self.lr * (torch.rsqrt(nu + self.eps) * g))
         self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for nu, saved in zip(self.nu, state["nu"], strict=True):
+            nu.copy_(saved)
+        self.count = state["count"]
 
 
 def make_optimizer(model: torch.nn.Module, cfg: A2CConfig) -> RMSProp:
@@ -171,9 +181,8 @@ def train_iteration(runner: RunnerState, env_params: EnvParams, cfg: A2CConfig,
             _flatten_tm(adv), _flatten_tm(returns), cfg)
     else:
         n = traj.reward.numel()
-        flat = Transition(**{f.name: getattr(traj, f.name).reshape(
-            (n,) + getattr(traj, f.name).shape[2:])
-            for f in dataclasses.fields(Transition)})
+        flat = Transition(**{name: getattr(traj, name).reshape(
+            (n,) + getattr(traj, name).shape[2:]) for name in TRAJ_FIELDS})
         loss, metrics = a2c_loss(runner.model, flat, adv.reshape(n),
                                  returns.reshape(n), cfg)
     return runner, _step(runner.optimizer, loss, metrics, traj)

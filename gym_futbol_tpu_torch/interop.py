@@ -1,7 +1,8 @@
 """Carry parameters, state and weights across from the JAX package.
 
 Nothing here imports JAX: a parameter set is read by attribute, and a
-state or a set of weights arrives as numpy arrays.
+state, a set of weights or a normaliser's statistics arrive as numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from .models.policy import ActorCritic
 from .models.recurrent import GATES, RecurrentActorCritic
 from .types import EnvParams, EnvState, RewardConfig
+from .wrappers import RewardNorm, RunningNorm
 
 
 def params_from_reference(obj) -> EnvParams:
@@ -114,3 +116,27 @@ def mlp_weights_from_numpy(weights, device: torch.device | str = "cuda"
     ``b`` ``[out, 1]``) -> the same tuple of float32 tensors."""
     return tuple(torch.tensor(np.asarray(w, np.float32), device=device)
                  for w in weights)
+
+
+def _floats(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def running_norm_from_numpy(mean, var, count,
+                            device: torch.device | str = "cuda") -> RunningNorm:
+    """The fields of a JAX ``wrappers.RunningNorm`` (``mean``, ``var``
+    ``[obs_dim]``, ``count`` ``[]``) as numpy arrays -> this package's
+    :class:`~gym_futbol_tpu_torch.wrappers.RunningNorm`, float32, on
+    ``device``."""
+    return RunningNorm(mean=_floats(mean, device), var=_floats(var, device),
+                       count=_floats(count, device))
+
+
+def reward_norm_from_numpy(ret, mean, var, count,
+                           device: torch.device | str = "cuda") -> RewardNorm:
+    """The fields of a JAX ``wrappers.RewardNorm`` (``ret`` ``[B]``,
+    ``mean``, ``var``, ``count`` ``[]``) as numpy arrays -> this package's
+    :class:`~gym_futbol_tpu_torch.wrappers.RewardNorm`, float32, on
+    ``device``."""
+    return RewardNorm(ret=_floats(ret, device), mean=_floats(mean, device),
+                      var=_floats(var, device), count=_floats(count, device))

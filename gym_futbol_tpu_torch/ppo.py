@@ -16,6 +16,16 @@ Two collectors give the same :class:`Transition`:
 (:mod:`gym_futbol_tpu_torch.ops.fused_collect`; obs feature-major
 ``[F_pad, 2*T*B]`` with samples ordered (view, step, env)).
 
+Both train through VecNormalize-style normalisation
+(:mod:`gym_futbol_tpu_torch.wrappers`; statistics on the runner, made by
+``init_runner(..., normalize_obs=, normalize_reward=)``):
+:func:`make_normalized_collect` normalises inside the plain loop and
+stores normalised obs; the fused collect folds the statistics of the
+iteration before into the first layer (:func:`fold_obs_norm`), stores the
+raw obs with those statistics on ``traj.norm`` for
+:func:`update_epochs_fused` to fold the same way, and scales the rewards
+after the kernel (:func:`posthoc_reward_norm`).
+
 Two updates take that experience through ``cfg.epochs`` x
 ``cfg.minibatches`` optimiser steps over shuffled sample blocks:
 :func:`update_epochs`, :func:`ppo_loss` under autograd, and
@@ -27,6 +37,7 @@ backward in the kernels of :mod:`gym_futbol_tpu_torch.ops.fused_update`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -40,6 +51,7 @@ from .models.policy import (
 )
 from .types import EnvParams, EnvState
 from .vector import reset_batch, step_batch
+from .wrappers import RewardNorm, RunningNorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +82,11 @@ class Transition:
     """A rollout's experience: ``[T, 2B]`` fields (actions bit-packed, 3
     bits per player, one int32 word per slot) and ``obs`` either
     ``[T, 2B, F]`` (plain collect) or feature-major ``[F_pad, 2*T*B]``
-    with samples ordered (view, step, env) (fused collect)."""
+    with samples ordered (view, step, env) (fused collect). ``norm``: the
+    frozen observation statistics a normalised fused collect acted
+    through, which the update folds into the first layer as the collect
+    did (its obs are raw); None on every other path (the plain normalised
+    collect stores normalised obs)."""
 
     obs: torch.Tensor
     dirs: torch.Tensor
@@ -79,6 +95,11 @@ class Transition:
     value: torch.Tensor
     reward: torch.Tensor
     done: torch.Tensor
+    norm: RunningNorm | None = None
+
+
+# the Transition fields that hold the experience itself
+TRAJ_FIELDS = ("obs", "dirs", "acts", "logp", "value", "reward", "done")
 
 
 @torch.no_grad()
@@ -129,6 +150,15 @@ class Optimizer:
         self.adam.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """Adam's moments and step counts, and ``count``: the anneal's
+        position."""
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = state["count"]
+
 
 def make_optimizer(model: ActorCritic, cfg: PPOConfig,
                    total_iters: int | None = None) -> Optimizer:
@@ -152,6 +182,10 @@ class RunnerState:
     obs: torch.Tensor            # [B, obs_dim] raw observation
     generator: torch.Generator   # on the model's device
     optimizer: Optimizer | None = None
+    # VecNormalize statistics, carried across iterations by the
+    # normalised collects; None when off
+    obs_norm: RunningNorm | None = None
+    rew_norm: RewardNorm | None = None
 
     def replace(self, **kw) -> "RunnerState":
         return dataclasses.replace(self, **kw)
@@ -171,7 +205,6 @@ def _check_model(model: ActorCritic, env_params: EnvParams) -> None:
             f"{env_params.players_per_team}")
 
 
-@torch.no_grad()
 def collect_rollout(
     runner: RunnerState, env_params: EnvParams, cfg: PPOConfig,
     action_uniforms: torch.Tensor | None = None,
@@ -182,21 +215,65 @@ def collect_rollout(
     ``models.policy.sample_actions`` takes for the ``[2B]`` logits);
     the env's kick and kickoff noise come from the generator. Returns
     (runner, traj ``[T, 2B, ...]``, bootstrap value ``[2B]``)."""
+    return _collect(runner, env_params, cfg, action_uniforms)
+
+
+def make_normalized_collect(normalize_obs: bool = True,
+                            normalize_reward: bool = True):
+    """:func:`collect_rollout` with VecNormalize semantics, the JAX
+    package's ``make_normalized_collect``: the policy acts on, and the
+    buffer stores, z-scored observations and rewards divided by the
+    running standard deviation of the discounted return. The statistics
+    (``runner.obs_norm`` / ``rew_norm``, from ``init_runner(...,
+    normalize_obs=True, normalize_reward=True)``) are updated every step.
+    Both views are mirrored from the RAW observation (``mirror_obs``'s
+    ``x -> 1 - x`` holds for field coordinates, not for z-scores), then
+    normalised with one set of statistics, updated on both; the reward
+    statistics follow team 0's reward; the bootstrap value reads the
+    statistics after the last step, without updating them. Returns a
+    drop-in for :func:`collect_rollout`."""
+    return functools.partial(_collect, normalize_obs=normalize_obs,
+                             normalize_reward=normalize_reward)
+
+
+def _check_norms(runner: RunnerState, normalize_obs: bool,
+                 normalize_reward: bool) -> None:
+    if normalize_obs and runner.obs_norm is None:
+        raise ValueError("init_runner(..., normalize_obs=True) required")
+    if normalize_reward and runner.rew_norm is None:
+        raise ValueError("init_runner(..., normalize_reward=True) required")
+
+
+@torch.no_grad()
+def _collect(
+    runner: RunnerState, env_params: EnvParams, cfg: PPOConfig,
+    action_uniforms: torch.Tensor | None = None, *,
+    normalize_obs: bool = False, normalize_reward: bool = False,
+) -> tuple[RunnerState, Transition, torch.Tensor]:
     model = runner.model
     _check_model(model, env_params)
+    _check_norms(runner, normalize_obs, normalize_reward)
+    onorm, rnorm = runner.obs_norm, runner.rew_norm
     state, obs, gen = runner.env_state, runner.obs, runner.generator
     steps = []
     for t in range(cfg.rollout_steps):
         obs2 = _both_views(obs, env_params)
+        if normalize_obs:
+            onorm = onorm.update(obs2)
+            obs2 = onorm.normalize(obs2)
         logits, value = model(obs2)
         u = None if action_uniforms is None else action_uniforms[t]
         state, out, tr = selfplay_step(state, obs2, logits, value, u, gen,
                                        env_params)
+        if normalize_reward:
+            rnorm = rnorm.update(out.team_reward[:, 0], out.done, cfg.gamma)
+            tr.reward = rnorm.normalize(tr.reward)
         steps.append(tr)
         obs = out.obs
-    _, last_value = model(_both_views(obs, env_params))
-    return (runner.replace(env_state=state, obs=obs), stack_steps(steps),
-            last_value)
+    obs2 = _both_views(obs, env_params)
+    _, last_value = model(onorm.normalize(obs2) if normalize_obs else obs2)
+    return (runner.replace(env_state=state, obs=obs, obs_norm=onorm,
+                           rew_norm=rnorm), stack_steps(steps), last_value)
 
 
 def selfplay_step(state: EnvState, obs2: torch.Tensor, logits: torch.Tensor,
@@ -220,14 +297,47 @@ def selfplay_step(state: EnvState, obs2: torch.Tensor, logits: torch.Tensor,
 def stack_steps(steps: list[Transition]) -> Transition:
     """Per-step transitions -> one with ``[T, ...]`` fields."""
     return Transition(**{
-        f.name: torch.stack([getattr(s, f.name) for s in steps])
-        for f in dataclasses.fields(Transition)})
+        name: torch.stack([getattr(s, name) for s in steps])
+        for name in TRAJ_FIELDS})
+
+
+def _obs_norm_scales(obs_norm: RunningNorm, eps: float = 1e-8):
+    """(mean, inv_std) of a :class:`~gym_futbol_tpu_torch.wrappers.RunningNorm`:
+    the affine map ``z = (x - mean) * inv_std`` that :func:`fold_obs_norm`
+    bakes into the weights. The folded path applies no ``±10`` clip
+    (``RunningNorm.normalize`` does): the env's observations are bounded
+    (field-normalised positions and velocities, 0/1 flags), so the clip
+    binds only while the variance rests on a few batches."""
+    return obs_norm.mean, torch.rsqrt(obs_norm.var + eps)
+
+
+def fold_obs_norm(w: tuple, mean: torch.Tensor, inv_std: torch.Tensor) -> tuple:
+    """Fold frozen z-score statistics into the FIRST layer of a flat
+    kernel-order weight tuple (:func:`ops.fused_collect.flatten_actor_critic`:
+    ``W`` ``[in, out]``, ``b`` ``[out, 1]``): ``W1' = diag(inv_std) W1``,
+    ``b1' = b1 - W1'^T mean``. The network on RAW observations then
+    computes the original network on z-scored ones (without the ``±10``
+    clip, :func:`_obs_norm_scales`), so the kernels, which build raw obs
+    or read the raw buffer, train through the normalisation unchanged."""
+    w0f = w[0] * inv_std[:, None]
+    b0f = w[1] - (w0f * mean[:, None]).sum(0)[:, None]
+    return (w0f, b0f, *w[2:])
+
+
+def unfold_obs_norm_grads(g: tuple, mean: torch.Tensor,
+                          inv_std: torch.Tensor) -> tuple:
+    """The chain rule back through :func:`fold_obs_norm`: gradients with
+    respect to the folded ``(W1', b1')`` -> with respect to ``(W1, b1)``:
+    ``dW1 = diag(inv_std) (dW1' - mean db1'^T)``, ``db1 = db1'``."""
+    g0 = inv_std[:, None] * (g[0] - mean[:, None] * g[1].reshape(1, -1))
+    return (g0, g[1], *g[2:])
 
 
 @torch.no_grad()
 def collect_rollout_fused(
     runner: RunnerState, env_params: EnvParams, cfg: PPOConfig,
     uniforms: torch.Tensor | None = None, compute_dtype=torch.bfloat16,
+    normalize_obs: bool = False, normalize_reward: bool = False,
 ) -> tuple[RunnerState, Transition, torch.Tensor]:
     """:func:`collect_rollout` on the fused kernel: both views' forward,
     sampling, the env step and auto-reset for all T steps in one launch
@@ -238,18 +348,31 @@ def collect_rollout_fused(
     the tensor-core kernel) or float32 (exact), as
     :func:`ops.fused_collect.fused_collect` takes it. logp and value are
     the kernel's own for its own actions. Returns (runner, traj with
-    feature-major obs, bootstrap value ``[2B]``)."""
+    feature-major obs, bootstrap value ``[2B]``).
+
+    ``normalize_obs`` / ``normalize_reward`` give VecNormalize semantics
+    with the kernel unchanged: ``runner.obs_norm`` as the iteration
+    starts (the lagged statistics) is folded into the first layer
+    (:func:`fold_obs_norm`) and rides on ``traj.norm`` for
+    :func:`update_epochs_fused`; the raw buffer's moments then merge into
+    ``obs_norm`` for the next iteration (:func:`merge_buffer_moments`),
+    and the rewards are scaled by :func:`posthoc_reward_norm`, the
+    plain normalised collect's per-step sequence replayed."""
     from .ops import pack_state, unpack_state
     from .ops.fused_collect import flatten_actor_critic, fused_collect
 
     _check_model(runner.model, env_params)
+    _check_norms(runner, normalize_obs, normalize_reward)
+    w = flatten_actor_critic(runner.model)
+    frozen = runner.obs_norm if normalize_obs else None
+    if frozen is not None:
+        w = fold_obs_norm(w, *_obs_norm_scales(frozen))
     gen = runner.generator
     sf, si = pack_state(runner.env_state, env_params)
     seed = int(torch.randint(0, 2**31 - 1, (), generator=gen, device=gen.device))
     (sf, si, obs, dirs, acts, logp, value, reward, done,
-     last_v) = fused_collect(sf, si, flatten_actor_critic(runner.model), seed,
-                             env_params, cfg.rollout_steps, uniforms=uniforms,
-                             compute_dtype=compute_dtype)
+     last_v) = fused_collect(sf, si, w, seed, env_params, cfg.rollout_steps,
+                             uniforms=uniforms, compute_dtype=compute_dtype)
     t, b = cfg.rollout_steps, sf.shape[1]
     f = obs.shape[1]  # F_pad
     traj = Transition(
@@ -261,11 +384,57 @@ def collect_rollout_fused(
         value=value.reshape(t, 2 * b),
         reward=reward.reshape(t, 2 * b),
         done=done.reshape(t, 2 * b).bool(),
+        norm=frozen,
     )
+    obs_norm, rew_norm = runner.obs_norm, runner.rew_norm
+    if normalize_obs:
+        obs_norm = merge_buffer_moments(obs_norm, traj.obs,
+                                        env_core.obs_size(env_params))
+    if normalize_reward:
+        rew_norm, traj.reward = posthoc_reward_norm(rew_norm, traj.reward,
+                                                    traj.done, cfg.gamma)
     env_state = unpack_state(sf, si, env_params)
     runner = runner.replace(env_state=env_state,
-                            obs=env_core.observe(env_state, env_params))
+                            obs=env_core.observe(env_state, env_params),
+                            obs_norm=obs_norm, rew_norm=rew_norm)
     return runner, traj, last_v.reshape(2 * b)
+
+
+def merge_buffer_moments(obs_norm: RunningNorm, obs_fm: torch.Tensor,
+                         n_feat: int) -> RunningNorm:
+    """``obs_norm`` with the moments of a feature-major ``[F_pad, N]``
+    buffer merged in: its ``n_feat`` real rows only (never the zero pad
+    rows), one reduction along each row, no transpose."""
+    rows = obs_fm[:n_feat]
+    var, mean = torch.var_mean(rows, dim=1, correction=0)
+    return obs_norm.update_moments(
+        mean, var, torch.full((), rows.shape[1], dtype=rows.dtype,
+                              device=rows.device))
+
+
+def posthoc_reward_norm(rew_norm: RewardNorm, reward: torch.Tensor,
+                        done: torch.Tensor, gamma: float):
+    """VecNormalize reward scaling after a fused collect, over its ``[T,
+    2B]`` buffers: step by step, the update and scaling of the plain
+    normalised collect (:func:`make_normalized_collect`): the statistics
+    follow team 0's rows, both views are scaled by the statistics through
+    that step. Returns (the updated :class:`RewardNorm`, the scaled
+    rewards ``[T, 2B]``)."""
+    b = reward.shape[1] // 2
+    scaled = torch.empty_like(reward)
+    for t in range(reward.shape[0]):
+        rew_norm = rew_norm.update(reward[t, :b], done[t, :b], gamma)
+        scaled[t] = rew_norm.normalize(reward[t])
+    return rew_norm, scaled
+
+
+def make_fused_normalized_collect(normalize_obs: bool = True,
+                                  normalize_reward: bool = True):
+    """The fused twin of :func:`make_normalized_collect`: a drop-in for
+    :func:`collect_rollout_fused` with the given normalisations; pair it
+    with :func:`update_epochs_fused`, which reads ``traj.norm``."""
+    return functools.partial(collect_rollout_fused, normalize_obs=normalize_obs,
+                             normalize_reward=normalize_reward)
 
 
 def compute_gae(
@@ -407,8 +576,15 @@ def update_epochs(
     :func:`ppo_loss` under autograd over the flattened buffer, shuffled
     in blocks of :func:`_shuffle_block_for` samples (one permutation per
     epoch; module docstring). ``traj.obs`` may be feature-major
-    ``[F, N]`` or row-major ``[T, 2B, F]``. Updates ``model`` in place;
-    returns each metric's mean over the steps."""
+    ``[F, N]`` or row-major ``[T, 2B, F]``. A normalised fused collect's
+    trajectory (``traj.norm`` set, raw obs) is refused: it belongs to
+    :func:`update_epochs_fused`, which folds the statistics in. Updates
+    ``model`` in place; returns each metric's mean over the steps."""
+    if traj.norm is not None:
+        raise ValueError(
+            "a normalised fused trajectory (traj.norm set, raw obs) is "
+            "consumed by update_epochs_fused, which folds the statistics "
+            "into the first layer; update_epochs would train on raw obs")
     t, b2 = traj.reward.shape
     n = t * b2
     obs_fm = traj.obs if traj.obs.dim() == 2 else _obs_to_fm(traj.obs)
@@ -452,9 +628,11 @@ def update_epochs_fused(
     the feature-major ``[F_pad, N]`` obs (:func:`collect_rollout_fused`)
     with N a multiple of ``cfg.shuffle_block``. ``compute_dtype``
     bfloat16 (operands of the layer products rounded, sums in float32)
-    or float32. The obs are raw: :class:`Transition` carries no
-    normalisation statistics, whose fold into the first layer comes with
-    the normalised collect (ROADMAP item 11)."""
+    or float32. With ``traj.norm`` set (a normalised fused collect, raw
+    obs) every launch gets the weights with those statistics folded in
+    (:func:`fold_obs_norm`), as the collect acted, and its gradients
+    are chained back (:func:`unfold_obs_norm_grads`); the buffer's zero
+    pad rows meet zero weight rows either way."""
     from .ops.fused_collect import flatten_actor_critic
     from .ops.fused_update import fused_minibatch_grad, unflatten_actor_critic
 
@@ -475,6 +653,7 @@ def update_epochs_fused(
     mb_blocks = n_blocks // cfg.minibatches
     inv_m = 1.0 / (mb_blocks * block)
     obs_fm = traj.obs.contiguous()
+    scales = None if traj.norm is None else _obs_norm_scales(traj.norm)
     history = []
     for perm in _epoch_perms(n_blocks, cfg, generator, perms):
         for idx in perm[: cfg.minibatches * mb_blocks].reshape(
@@ -482,12 +661,17 @@ def update_epochs_fused(
             idx = idx.to(torch.int32).contiguous()
             adv_mb = flat["adv"][idx]
             adv_n = (adv_mb - adv_mb.mean()) / (adv_mb.std(correction=0) + 1e-8)
+            w = flatten_actor_critic(model)
+            if scales is not None:
+                w = fold_obs_norm(w, *scales)
             grads, sums = fused_minibatch_grad(
-                flatten_actor_critic(model), obs_fm, flat["dirs"], flat["acts"],
-                flat["logp"], flat["value"], flat["ret"], adv_n, idx,
+                w, obs_fm, flat["dirs"], flat["acts"], flat["logp"],
+                flat["value"], flat["ret"], adv_n, idx,
                 n_torso=len(model.hidden), clip_eps=cfg.clip_eps,
                 vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef, block=block,
                 compute_dtype=compute_dtype)
+            if scales is not None:
+                grads = unfold_obs_norm_grads(grads, *scales)
             unflatten_actor_critic(grads, model)
             optimizer.step()
             metrics = {k: v * inv_m for k, v in sums.items()}
@@ -522,14 +706,21 @@ def train_iteration(
 def init_runner(
     generator: torch.Generator, model: ActorCritic, env_params: EnvParams,
     cfg: PPOConfig, n_envs: int, total_iters: int | None = None,
+    normalize_obs: bool = False, normalize_reward: bool = False,
 ) -> RunnerState:
     """Initialise ``model`` from ``generator`` (flax's initialisers),
     build its optimiser (:func:`make_optimizer`, annealed over
     ``total_iters`` when given) and reset ``n_envs`` envs on the model's
-    device; the runner keeps the generator for every later draw."""
+    device; the runner keeps the generator for every later draw.
+    ``normalize_obs`` / ``normalize_reward`` start the statistics the
+    normalised collects carry: a ``RunningNorm`` over the observation's
+    features, a ``RewardNorm`` over the ``n_envs`` envs."""
     init_params(generator, model, env_params)
     device = model.logits.weight.device
     env_state, obs = reset_batch(generator, env_params, n_envs, device=device)
-    return RunnerState(model=model, env_state=env_state, obs=obs,
-                       generator=generator,
-                       optimizer=make_optimizer(model, cfg, total_iters))
+    return RunnerState(
+        model=model, env_state=env_state, obs=obs, generator=generator,
+        optimizer=make_optimizer(model, cfg, total_iters),
+        obs_norm=(RunningNorm.init(env_core.obs_size(env_params), device)
+                  if normalize_obs else None),
+        rew_norm=RewardNorm.init(n_envs, device) if normalize_reward else None)

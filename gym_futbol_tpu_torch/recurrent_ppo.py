@@ -34,6 +34,7 @@ from .a2c import (
 from .models.policy import action_log_prob_and_entropy_packed
 from .models.recurrent import RecurrentActorCritic
 from .ppo import (
+    TRAJ_FIELDS,
     PPOConfig,
     Transition,
     _epoch_perms,
@@ -126,8 +127,7 @@ def update_epochs_recurrent(
     def blocks(x):                  # [T, S, ...] -> [T, n_blocks, block, ...]
         return x.reshape(t, n_blocks, block, *x.shape[2:])
 
-    fields = {f.name: blocks(getattr(traj, f.name))
-              for f in dataclasses.fields(Transition)}
+    fields = {name: blocks(getattr(traj, name)) for name in TRAJ_FIELDS}
     adv_blk, ret_blk = blocks(adv), blocks(returns)
     carry_blk = tuple(c.reshape(n_blocks, block, -1) for c in init_carry)
     history = []

@@ -24,6 +24,17 @@ Runs on the card unless ``--device cpu``. ``--eval-episodes N`` then
 plays the final policy against uniform random play (the fused evaluator,
 or ``evaluate_recurrent`` for the LSTM policy, N envs for one full
 episode each) and prints its win, loss and draw rates.
+
+``--normalize-obs`` / ``--normalize-reward`` train feed-forward PPO
+through VecNormalize-style statistics (``wrappers``): with
+``--fused-collect`` on both kernels (the statistics folded into the
+first layer), else on the plain collect. ``--checkpoint-dir`` resumes
+from the newest checkpoint there and saves every ``--checkpoint-every``
+iterations and at the end; iterations are numbered on across a resume,
+so ``--iters`` is the run's total. ``--log-dir`` appends every record to
+``metrics.jsonl`` there (and TensorBoard when it imports).
+``--debug-nans`` turns on autograd's anomaly detection and checks after
+every iteration that the metrics, parameters and statistics are finite.
 """
 
 from __future__ import annotations
@@ -74,12 +85,50 @@ def main(argv: list[str] | None = None):
                     help="after training, play this many full episodes of the "
                          "final policy against uniform random play and print "
                          "an eval_vs_random record (with --iters 0: the "
-                         "untrained policy)")
+                         "untrained policy; with --normalize-obs the final "
+                         "statistics are folded into the evaluated weights)")
+    ap.add_argument("--normalize-obs", action="store_true",
+                    help="z-score the observations by running statistics the "
+                         "policy trains through (feed-forward PPO; with "
+                         "--fused-collect folded into the first layer of both "
+                         "kernels, else in the plain collect)")
+    ap.add_argument("--normalize-reward", action="store_true",
+                    help="divide rewards by the running standard deviation "
+                         "of the discounted return (feed-forward PPO, either "
+                         "collect)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="resume from the newest checkpoint in this directory, "
+                         "if any, and save the runner there")
+    ap.add_argument("--checkpoint-every", type=int, default=25,
+                    help="save every this many iterations (and at the end)")
+    ap.add_argument("--log-dir", default=None,
+                    help="append each record to metrics.jsonl in this "
+                         "directory (and TensorBoard scalars when it imports)")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="autograd anomaly detection, and a check after every "
+                         "iteration that the metrics, parameters and "
+                         "normaliser statistics are finite (debugging only)")
     args = ap.parse_args(argv)
     if args.algo == "a2c" and args.lr_anneal:
         raise SystemExit("--lr-anneal is wired into the PPO optimiser only "
                          "(A2C uses constant-rate RMSProp)")
+    normalizing = args.normalize_obs or args.normalize_reward
+    if normalizing and (args.algo != "ppo" or args.recurrent):
+        raise SystemExit("--normalize-obs/--normalize-reward are wired into "
+                         "feed-forward PPO only")
+    if normalizing and args.fused_collect and args.no_fused_update:
+        raise SystemExit("normalised fused training folds the statistics into "
+                         "the fused update; drop --no-fused-update")
+    if args.checkpoint_every < 1:
+        raise SystemExit("--checkpoint-every must be >= 1")
 
+    import torch
+
+    with torch.autograd.set_detect_anomaly(args.debug_nans):
+        return _run(args)
+
+
+def _run(args):
     import functools
 
     import torch
@@ -90,6 +139,7 @@ def main(argv: list[str] | None = None):
     from .models.policy import ActorCritic
     from .models.recurrent import RecurrentActorCritic
     from .types import EnvParams
+    from .utils.metrics import MetricsLogger, to_python
 
     device = torch.device(args.device)
     env_params = EnvParams(players_per_team=args.ppt, max_steps=args.max_steps)
@@ -130,28 +180,54 @@ def main(argv: list[str] | None = None):
                                              collect_fn=collect_fn)
         else:
             cfg = ppo.PPOConfig(**kw)
-            runner = ppo.init_runner(gen, model, env_params, cfg, args.envs,
-                                     total_iters)
+            runner = ppo.init_runner(
+                gen, model, env_params, cfg, args.envs, total_iters,
+                normalize_obs=args.normalize_obs,
+                normalize_reward=args.normalize_reward)
+            if args.normalize_obs or args.normalize_reward:
+                collect_fn = (ppo.make_fused_normalized_collect
+                              if args.fused_collect else
+                              ppo.make_normalized_collect)(
+                    args.normalize_obs, args.normalize_reward)
             update_fn = (ppo.update_epochs_fused
                          if args.fused_collect and not args.no_fused_update
                          else None)
             iteration_fn = functools.partial(
                 ppo.train_iteration, collect_fn=collect_fn, update_fn=update_fn)
 
+    ckpt, start = None, 0
+    if args.checkpoint_dir:
+        from .utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(args.checkpoint_dir)
+        restored, start = ckpt.restore_latest(runner)
+        if restored is not None:
+            runner = restored
+            print(f"# resumed from iteration {start}", flush=True)
+    mlog = MetricsLogger(args.log_dir)
     steps_per_iter = args.envs * cfg.rollout_steps
+    saved = start
     t_start = time.perf_counter()
-    for it in range(args.iters):
+    for it in range(start, args.iters):
         t0 = time.perf_counter()
         runner, metrics = iteration_fn(runner, env_params, cfg)
-        metrics = {k: float(v) for k, v in metrics.items()}   # synchronises
+        metrics = to_python(metrics)                         # synchronises
         dt = time.perf_counter() - t0
+        if args.debug_nans:
+            _check_finite(it, metrics, runner)
         if it % args.log_every == 0:
-            print(json.dumps({
-                "step": it, "wall_s": round(time.perf_counter() - t_start, 3),
+            print(json.dumps(mlog.write(it, {
                 "env_steps_per_sec": round(steps_per_iter / dt),
                 **{k: round(v, 5) for k, v in metrics.items()},
-            }), flush=True)
+            })), flush=True)
+        if ckpt and (it + 1) % args.checkpoint_every == 0:
+            ckpt.save(runner, it + 1)
+            saved = it + 1
     total = time.perf_counter() - t_start
+    n_iters = max(args.iters - start, 0)
+    if ckpt and saved < args.iters:
+        ckpt.save(runner, args.iters)
+    mlog.close()
     if args.eval_episodes:
         from .evaluate import (
             evaluate_fused,
@@ -166,6 +242,10 @@ def main(argv: list[str] | None = None):
                                      n_steps=env_params.max_steps, seed=args.seed)
         else:
             w = actor_critic_policy_weights(runner.model)
+            if runner.obs_norm is not None:
+                # the policy acted through the statistics: fold them in,
+                # as the fused collect did
+                w = ppo.fold_obs_norm(w, *ppo._obs_norm_scales(runner.obs_norm))
             res = evaluate_fused(env_params, w, uniform_random_weights_like(w),
                                  n_envs=args.eval_episodes,
                                  n_steps=env_params.max_steps, seed=args.seed)
@@ -177,11 +257,32 @@ def main(argv: list[str] | None = None):
         }}), flush=True)
     print(json.dumps({
         "done": True,
-        "total_env_steps": steps_per_iter * args.iters,
+        "total_env_steps": steps_per_iter * n_iters,
         "wall_s": round(total, 2),
-        "env_steps_per_sec": round(steps_per_iter * args.iters / total),
+        "env_steps_per_sec": round(steps_per_iter * n_iters / total),
     }), flush=True)
     return runner
+
+
+def _check_finite(it: int, metrics: dict, runner) -> None:
+    """Raise FloatingPointError naming iteration ``it`` and the first
+    non-finite leaf of the metrics, the model's parameters or the
+    normalisers' statistics."""
+    import math
+
+    import torch
+
+    leaves = [(f"metrics.{k}", v) for k, v in metrics.items()]
+    leaves += [(f"model.{k}", p) for k, p in runner.model.named_parameters()]
+    for name in ("obs_norm", "rew_norm"):
+        norm = getattr(runner, name, None)
+        if norm is not None:
+            leaves += [(f"{name}.{k}", v) for k, v in vars(norm).items()]
+    for name, v in leaves:
+        ok = (bool(torch.isfinite(v).all()) if isinstance(v, torch.Tensor)
+              else math.isfinite(v))
+        if not ok:
+            raise FloatingPointError(f"iteration {it}: non-finite {name}")
 
 
 if __name__ == "__main__":

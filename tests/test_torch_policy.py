@@ -184,9 +184,9 @@ def test_mlp_weights_from_numpy():
 def test_port_imports_no_jax():
     """The port imports torch and never JAX, flax, optax or the JAX
     package: with all four made unimportable, every module of the package
-    (ppo, train, ops.fused_update, and the recurrent learners' a2c,
-    recurrent_ppo, models.recurrent and ops.fused_recurrent among them)
-    still imports."""
+    (ppo, train, ops.fused_update, the recurrent learners' a2c,
+    recurrent_ppo, models.recurrent and ops.fused_recurrent, and wrappers,
+    utils.checkpoint and utils.metrics among them) still imports."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'flax', 'optax', 'gym_futbol_tpu'):\n"
@@ -200,7 +200,10 @@ def test_port_imports_no_jax():
         "        'gym_futbol_tpu_torch.ops.fused_update',\n"
         "        'gym_futbol_tpu_torch.a2c', 'gym_futbol_tpu_torch.recurrent_ppo',\n"
         "        'gym_futbol_tpu_torch.models.recurrent',\n"
-        "        'gym_futbol_tpu_torch.ops.fused_recurrent'} <= set(names)\n"
+        "        'gym_futbol_tpu_torch.ops.fused_recurrent',\n"
+        "        'gym_futbol_tpu_torch.wrappers',\n"
+        "        'gym_futbol_tpu_torch.utils.checkpoint',\n"
+        "        'gym_futbol_tpu_torch.utils.metrics'} <= set(names)\n"
         "assert not any(k.startswith(('jax', 'flax', 'optax', 'gym_futbol_tpu.'))\n"
         "               and sys.modules[k] for k in sys.modules)\n"
     )
