@@ -50,7 +50,19 @@ port's main paths:
   norm, GAE and K3, beside phase 12's; a bitwise resume through
   utils.checkpoint (2 iterations, save, restore into a fresh runner, 1
   more, against 3); the CLI checkpointed and logged for 4 iterations,
-  then resumed to 6.
+  then resumed to 6;
+- phase 18, the distribution layer (gym_futbol_tpu_torch.parallel): two
+  spawned ranks sharing the card over gloo run, each on its half of the
+  envs, K1a through shard_fused_rollout at config 3 (each rank bitwise
+  one unsharded launch of its envs with its folded seed; the ranks'
+  streams differ), K1b on its share, two sharded fused PPO iterations at
+  config 4 width (K2, K3 in bf16; the replicated leaves bitwise equal
+  across the ranks) and one sharded recurrent PPO iteration (K5), every
+  one of those kernels launched on each rank; the iteration's time and
+  the all-reduce's per minibatch; one rank over NCCL runs the sharded
+  fused iteration bitwise equal to the undistributed one; the training
+  CLI under torchrun on two ranks (--distributed --fused-collect);
+- phase 19, FutbolEnv on the card through make("futbol-v0").
 Phase 6 also measures the contact solver's active share (the pairs and
 walls the culled env step updates) at config 3, the 5v5 scale and config
 4, and the env step's operation count, and so every bound that counts
@@ -1778,6 +1790,351 @@ def normalized_phases(dev, main12) -> None:
     shutil.rmtree(scratch, ignore_errors=True)
 
 
+B_DIST, T_DIST = 16384, 128           # phase 18: config 4 over 2 ranks
+B_DIST_K1, T_DIST_K1 = 4096, 512      # phase 18: config 3 over 2 ranks
+B_DIST_R, T_DIST_R = 4096, 16         # phase 18: recurrent, 2v2 over 2 ranks
+DIST_SEED = 2_000_000_000             # rank 1's folded seed wraps past 2**31
+FUTBOL_ENV_STEPS = 200
+FUTBOL_ENV_TIMED = 50
+
+
+def _dist_rank(rank: int, world: int, init_file: str, out_file: str) -> None:
+    """One rank of phase 18 (a spawned process; both ranks share the
+    card over gloo): the sharded K1a rollout and K1b replay at config 3,
+    two sharded fused PPO iterations at config 4 width (K2, K3), one
+    sharded recurrent PPO iteration with the fused collect (K5), their
+    launch counts, times and the checks; the result as JSON."""
+    import dataclasses
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    from gym_futbol_tpu_torch import EnvParams, a2c, obs_size, ops, ppo, vector
+    from gym_futbol_tpu_torch import recurrent_ppo as rppo
+    from gym_futbol_tpu_torch.models.policy import ActorCritic
+    from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic
+    from gym_futbol_tpu_torch.parallel import (
+        check_replicated,
+        env_group,
+        init_distributed,
+        rank_device,
+        shard_env_state,
+        shard_fused_rollout,
+        shard_runner,
+        shard_train_iteration,
+    )
+    from gym_futbol_tpu_torch.parallel.mesh import all_mean, fold_seed
+
+    init_distributed(init_method=f"file://{init_file}", rank=rank,
+                     world_size=world, device="cuda")
+    _, _, group = env_group()
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    out = {"backend": dist.get_backend(group), "device": str(dev)}
+    p3, p4 = EnvParams(players_per_team=2), EnvParams(players_per_team=3)
+
+    def sync_time(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the main path: sharded K1a and K1b, the sharded fused PPO iteration
+    # (K2, K3), the sharded recurrent iteration (K5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st3, _ = vector.reset_batch(gen, p3, B_DIST_K1, device=dev)
+    acts = torch.randint(0, 5, (16, 2 * p3.n_players, B_DIST_K1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    sf, si = ops.pack_state(shard_env_state(st3, group), p3)
+    gen4 = torch.Generator(device=dev).manual_seed(4)
+    cfg = ppo.PPOConfig(rollout_steps=T_DIST)
+    runner = shard_runner(ppo.init_runner(
+        gen4, ActorCritic(3, obs_size(p4), H4, device=dev), p4, cfg, B_DIST), group)
+    step = shard_train_iteration(functools.partial(
+        ppo.train_iteration, collect_fn=ppo.collect_rollout_fused,
+        update_fn=ppo.update_epochs_fused), group)
+    rcfg = rppo.RecurrentPPOConfig(rollout_steps=T_DIST_R)
+    rrunner = shard_runner(rppo.init_recurrent_ppo_runner(
+        torch.Generator(device=dev).manual_seed(5),
+        RecurrentActorCritic(2, obs_size(p3), (128,), 128, device=dev), p3, rcfg,
+        B_DIST_R), group)
+    rstep = shard_train_iteration(functools.partial(
+        rppo.train_iteration_recurrent_ppo,
+        collect_fn=a2c.collect_recurrent_rollout_fused), group)
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launch_counts()
+    k1 = shard_fused_rollout(group, p3, T_DIST_K1)(sf, si, DIST_SEED)
+    k1b = ops.fused_rollout_replay(sf, si, shard_env_state(acts, group, dim=2), p3)
+    ms_iter, metrics = [], []
+    for i in range(3):                       # one warm-up, two timed
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner, m = step(runner, p4, cfg)
+        torch.cuda.synchronize()
+        if i:
+            ms_iter.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+    rrunner, rm = rstep(rrunner, p3, rcfg)
+    torch.cuda.synchronize()
+    out["launches"] = dict(ops.LAUNCHES)
+    out["ms_iter"], out["metrics"] = ms_iter, metrics
+    out["recurrent"] = {k: float(v) for k, v in rm.items()}
+
+    # the checks (launches from here on are comparisons, not the main path)
+    check_replicated(runner, group)
+    check_replicated(rrunner, group)
+    out["replicated"] = True
+    ref = ops.fused_rollout(sf, si, fold_seed(DIST_SEED, rank), p3, T_DIST_K1)
+    out["k1_bitwise"] = all(torch.equal(a, b) for a, b in zip(k1, ref))
+    sf0, si0 = ops.pack_state(dataclasses.replace(st3, **{
+        f.name: getattr(st3, f.name)[: B_DIST_K1 // world]
+        for f in dataclasses.fields(st3)}), p3)
+    rew = shard_fused_rollout(group, p3, 64)(sf0, si0, DIST_SEED)[2].cpu()
+    rank0 = rew.clone()
+    dist.broadcast(rank0, 0, group=group)
+    out["streams_differ"] = rank == 0 or not torch.equal(rew, rank0)
+    out["folded_seed"] = fold_seed(DIST_SEED, rank)
+    out["k1b_finite"] = bool(torch.isfinite(k1b[2]).all())
+    # the all-reduce of one minibatch: the flat gradients and five metrics
+    n = sum(p.numel() for p in runner.model.parameters()) + 5
+    buf = torch.randn(n, device=dev)
+    for _ in range(3):
+        all_mean([buf], group)
+    times = sorted(sync_time(lambda: all_mean([buf], group)) for _ in range(20))
+    out["allreduce_ms"], out["allreduce_numel"] = times[len(times) // 2], n
+    with open(out_file, "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+
+
+def distributed_phases(dev) -> None:
+    """Phase 18: the distribution layer. (a, c) two spawned ranks share the
+    card over gloo: K1a through shard_fused_rollout at config 3 (each
+    rank bitwise one unsharded launch of its envs with its folded seed,
+    the ranks' streams different), K1b on each rank's share, two sharded
+    fused PPO iterations at config 4 width (K2, K3; replicated leaves
+    bitwise equal across the ranks), one sharded recurrent PPO iteration
+    (K5), every kernel of the path launched on each rank; the iteration's
+    time and the all-reduce's per minibatch. Phase 19's first steps, timed
+    alone. (d) the CLI under torchrun on two ranks, in the background of
+    (b), one rank over NCCL (the sharded fused iteration bitwise the
+    undistributed one from the same runner), and of phase 19's other
+    steps, neither of which measures a time."""
+    import multiprocessing as mp
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, "build", "chip_smoke_18")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+
+    # (a, c): two ranks on the card, gloo
+    world = 2
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(scratch, f"rank{r}.json") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dist_rank, args=(
+        r, world, os.path.join(scratch, "rendezvous"), outs[r]))
+        for r in range(world)]
+    for pr in procs:
+        pr.start()
+    try:
+        for pr in procs:
+            pr.join(timeout=300)
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    check(all(pr.exitcode == 0 for pr in procs),
+          f"18: a rank failed: exit codes {[pr.exitcode for pr in procs]}")
+    res = []
+    for path in outs:
+        with open(path) as fh:
+            res.append(json.load(fh))
+    path_kernels = ("fused_rollout", "fused_rollout_replay", "fused_collect",
+                    "fused_minibatch_grad", "fused_recurrent_collect")
+    for r, o in enumerate(res):
+        launches = {k: o["launches"].get(k, 0) for k in path_kernels}
+        phase("18 ranks", f"rank {r} of {world} on {o['device']} over "
+              f"{o['backend']}: kernel launches in the main path {launches}; "
+              f"f32 routes {{{', '.join(f'{k}: {v}' for k, v in o['launches'].items() if k.endswith('_f32'))}}}")
+        check(o["backend"] == "gloo", "18: two ranks on one card must take gloo")
+        check(all(n > 0 for n in launches.values()),
+              f"18: rank {r}'s main path skipped a kernel: {launches}")
+        check(all(v == 0 for k, v in o["launches"].items() if k.endswith("_f32")),
+              "18: an f32 route ran on the main path")
+        check(o["replicated"] and o["k1_bitwise"] and o["streams_differ"]
+              and o["k1b_finite"], f"18: rank {r}'s checks: {o}")
+    check(res[0]["metrics"] == res[1]["metrics"], "18: the ranks' metrics differ")
+    phase("18 K1", f"shard_fused_rollout config 3 2v2 {B_DIST_K1} envs over "
+          f"{world} ranks T={T_DIST_K1}, seed {DIST_SEED} folded to "
+          f"{[o['folded_seed'] for o in res]}: each rank bitwise one unsharded "
+          f"launch of its envs with its folded seed; the ranks' streams differ "
+          f"on the same envs; the sharded replay finite")
+    phase("18 main path", f"sharded train_iteration (fused collect + K3), 3v3 "
+          f"{B_DIST} envs over {world} ranks sharing the card ({B_DIST // world} "
+          f"each), T={T_DIST}, hidden {H4}, bf16: ms per iteration "
+          f"{[[round(x, 3) for x in o['ms_iter']] for o in res]} (rank 0, rank "
+          f"1); all-reduce of one minibatch's {res[0]['allreduce_numel']} "
+          f"gradient and metric floats (gloo, through host memory), median of "
+          f"20: {[round(o['allreduce_ms'], 4) for o in res]} ms; replicated "
+          f"leaves bitwise equal across the ranks after 3 iterations and after "
+          f"the recurrent one; metrics {res[0]['metrics'][-1]}")
+    phase("18 recurrent", f"sharded train_iteration_recurrent_ppo (K5 collect), "
+          f"2v2 {B_DIST_R} envs over {world} ranks, T={T_DIST_R}, (128,) H=128: "
+          f"{res[0]['recurrent']}")
+    phase("18 ranks", f"spawn to exit: {time.perf_counter() - t0:.1f} s")
+
+    # phase 19's timed steps, alone on the card
+    env_run = FutbolEnvRun()
+    ms_env = env_run.steps(FUTBOL_ENV_TIMED)
+
+    # (d): the CLI under torchrun, two ranks on the card, in the background
+    # of (b) and of phase 19's untimed steps, which measure no time
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", "-m", "gym_futbol_tpu_torch.train",
+            "--distributed", "--fused-collect", "--ppt", "2", "--envs", "8192",
+            "--hidden", "128", "128", "--iters", "3"]
+    t0 = time.perf_counter()
+    logs = [os.path.join(scratch, f"cli.{x}") for x in ("out", "err")]
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        cli = subprocess.Popen(argv, stdout=out, stderr=err, cwd=root,
+                               env={**os.environ, "OMP_NUM_THREADS": "1"})
+        try:
+            one_rank_phase(dev, scratch)
+            env_run.steps(FUTBOL_ENV_STEPS - FUTBOL_ENV_TIMED)
+            cli.wait(timeout=300)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+    env_run.report(ms_env)
+    stdout, stderr = (open(x).read() for x in logs)
+    lines = [x for x in stdout.splitlines() if x.startswith("{")]
+    phase("18 CLI", f"{' '.join(argv[1:])}: exit {cli.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines))
+    check(cli.returncode == 0, f"18: the torchrun CLI failed: {stderr[-3000:]}")
+    recs = [json.loads(x) for x in lines]
+    check([r.get("step") for r in recs[:-1]] == [0, 1, 2] and recs[-1].get("done")
+          and recs[-1]["total_env_steps"] == 3 * 8192 * 128,
+          "18: the CLI's records (rank 0 alone prints)")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+
+def one_rank_phase(dev, scratch: str) -> None:
+    """Phase 18 (b): one rank over NCCL runs the sharded fused iteration
+    at config 4 width, bitwise the undistributed one from the same
+    runner."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from gym_futbol_tpu_torch import EnvParams, obs_size, ppo
+    from gym_futbol_tpu_torch.models.policy import ActorCritic
+    from gym_futbol_tpu_torch.parallel import (
+        env_group,
+        init_distributed,
+        shard_runner,
+        shard_train_iteration,
+    )
+
+    p4 = EnvParams(players_per_team=3)
+    cfg = ppo.PPOConfig(rollout_steps=T_DIST)
+
+    def make():
+        gen = torch.Generator(device=dev).manual_seed(9)
+        return ppo.init_runner(gen, ActorCritic(3, obs_size(p4), H4, device=dev),
+                               p4, cfg, B_DIST // 2)
+
+    it = functools.partial(ppo.train_iteration, collect_fn=ppo.collect_rollout_fused,
+                           update_fn=ppo.update_epochs_fused)
+    alone, m_alone = it(make(), p4, cfg)
+    check(init_distributed(init_method=f"file://{os.path.join(scratch, 'nccl')}",
+                           rank=0, world_size=1, device="cuda"),
+          "18: the one-rank group did not start")
+    try:
+        _, _, group = env_group()
+        backend = dist.get_backend(group)
+        shared, m_shared = shard_train_iteration(it, group)(
+            shard_runner(make(), group), p4, cfg)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    flat_a, flat_b = dict(runner_leaves(alone)), dict(runner_leaves(shared))
+    differ = [k for k in flat_a if not (torch.equal(flat_a[k], flat_b[k])
+                                        if isinstance(flat_a[k], torch.Tensor)
+                                        else flat_a[k] == flat_b[k])]
+    same_metrics = all(torch.equal(m_alone[k], m_shared[k]) for k in m_alone)
+    phase("18 one rank", f"{backend}, 3v3 {B_DIST // 2} envs T={T_DIST} {H4}: the "
+          f"sharded iteration against the undistributed one from the same "
+          f"runner: {len(flat_a)} leaves, differing {differ}, metrics equal "
+          f"{same_metrics}")
+    check(backend == "nccl" and not differ and same_metrics,
+          "18: the one-rank NCCL iteration is not bitwise the undistributed one")
+
+
+class FutbolEnvRun:
+    """Phase 19: FutbolEnv on the card through make("futbol-v0") (max
+    steps 150): random steps drawn from its action space and generator,
+    a reset where an episode ends; then the entity views and the ASCII
+    render."""
+
+    def __init__(self):
+        import torch
+
+        from gym_futbol_tpu_torch import make
+
+        self.env = make("futbol-v0", seed=0, max_steps=150)
+        self.obs = self.env.reset()
+        self.episodes, self.rewards, self.n = 0, [], 0
+        torch.cuda.synchronize()
+
+    def steps(self, n: int) -> float:
+        """``n`` steps; their ms per step (synchronised)."""
+        import torch
+
+        env = self.env
+        t0 = time.perf_counter()
+        for _ in range(n):
+            self.obs, reward, done, _ = env.step(env.action_space.sample(env.generator))
+            self.rewards.append(reward)
+            if done:
+                self.episodes += 1
+                self.obs = env.reset()
+        torch.cuda.synchronize()
+        self.n += n
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def report(self, ms: float) -> None:
+        import torch
+
+        from gym_futbol_tpu_torch import Ball, Team
+
+        env, obs = self.env, self.obs
+        rewards = torch.stack(self.rewards)
+        frame = env.render(mode="ansi")
+        check(obs.device.type == "cuda" and obs.shape == (4 * env.params.n_bodies + 2,)
+              and bool(torch.isfinite(obs).all())
+              and bool(torch.isfinite(rewards).all()), "19: FutbolEnv's outputs")
+        check(self.episodes == self.n // 150 and all(c in frame for c in "ABo"),
+              "19: FutbolEnv's episodes or render")
+        phase("19 FutbolEnv", f"make('futbol-v0', max_steps=150) on {obs.device}: "
+              f"{self.n} steps, {self.episodes} episode ends; {ms:.2f} ms per "
+              f"step over the first {FUTBOL_ENV_TIMED}, alone on the card (the "
+              f"plain step of one env, host-bound); reward sum "
+              f"{float(rewards.sum()):.5g}; ball at "
+              f"{Ball(env.state).position.tolist()}, team 0 "
+              f"{Team(env.state, 0, env.params).positions.tolist()}; frame:\n{frame}")
+
+
+
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (the share of its wall
     time the device was busy, the wall ms, [(kernel, launches, device
@@ -2153,6 +2510,7 @@ def main() -> int:
     update_record, main12 = update_phases(dev, custom)
     recurrent_record = recurrent_phases(dev, custom, shares)
     normalized_phases(dev, main12)
+    distributed_phases(dev)
 
     per_step = f"ms per step of the {B3}-env 2v2 batch"
     record = {"kernels": [

@@ -34,9 +34,29 @@ Quick start::
     # policy-vs-policy evaluation
     w = ops.init_mlp(gen, params, (128, 128), device="cuda")
     metrics = evaluate.evaluate_fused(params, w, n_envs=4096, n_steps=512)
+
+    # one env, Gym-style
+    from gym_futbol_tpu_torch import make
+    env = make("futbol-v0")
+    obs = env.reset()
+    obs, reward, done, info = env.step(env.action_space.sample(env.generator))
+
+Env-sharded training over several processes: :mod:`.parallel` and the
+CLI's ``--distributed``.
 """
 
-from .env import mirror_actions, mirror_obs, observe, obs_size, reset, step
+from .entities import Ball, Player, Team
+from .env import (
+    FutbolEnv,
+    mirror_actions,
+    mirror_obs,
+    observe,
+    obs_size,
+    reset,
+    step,
+)
+from .registry import make, make_params, register, registered_ids
+from .spaces import Box, Discrete, MultiDiscrete
 from .types import EnvParams, EnvState, RewardConfig, StepOutput
 
 __version__ = "0.1.0"
@@ -46,11 +66,22 @@ __all__ = [
     "EnvState",
     "RewardConfig",
     "StepOutput",
+    "FutbolEnv",
     "reset",
     "step",
     "observe",
     "obs_size",
     "mirror_obs",
     "mirror_actions",
+    "make",
+    "make_params",
+    "register",
+    "registered_ids",
+    "Ball",
+    "Player",
+    "Team",
+    "Box",
+    "Discrete",
+    "MultiDiscrete",
     "__version__",
 ]

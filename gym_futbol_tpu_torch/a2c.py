@@ -17,6 +17,11 @@ in one launch of the ``fused_recurrent_collect`` kernel. The loss
 carry it started with, resetting at the same episode ends, so gradients
 flow through time (BPTT). :mod:`gym_futbol_tpu_torch.recurrent_ppo`
 shares the collect and the runner.
+
+Both iterations take ``group``, a ``torch.distributed`` process group
+over which the envs are sharded (:mod:`gym_futbol_tpu_torch.parallel`):
+the gradients and metrics are averaged over the ranks before RMSProp's
+clip, ``mean_reward`` over every rank's envs.
 """
 
 from __future__ import annotations
@@ -40,9 +45,11 @@ from .ppo import (
     _check_model,
     _flatten_tm,
     _forward_fm,
+    average_grads,
     clip_by_global_norm,
     collect_rollout,
     compute_gae,
+    mean_reward,
     selfplay_step,
     stack_steps,
 )
@@ -152,24 +159,28 @@ def a2c_loss_fm(model: ActorCritic, obs_fm: torch.Tensor, dirs: torch.Tensor,
     return _loss(logp, entropy, value, adv, returns, cfg)
 
 
-def _step(optimizer, loss: torch.Tensor, metrics: dict, traj: Transition):
-    """One optimiser step on ``loss``; the metrics detached, with the
-    team-0 rows' mean reward."""
+def _step(optimizer, loss: torch.Tensor, metrics: dict, traj: Transition,
+          group=None):
+    """One optimiser step on ``loss``, its gradients and the metrics
+    averaged over ``group`` first (:func:`ppo.average_grads`); the metrics
+    detached, with the team-0 rows' mean reward."""
     optimizer.zero_grad()
     loss.backward()
+    metrics = average_grads(optimizer.params, {
+        k: v.detach() for k, v in metrics.items()}, group)
     optimizer.step()
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["mean_reward"] = traj.reward[:, : traj.reward.shape[1] // 2].mean()
+    metrics["mean_reward"] = mean_reward(traj, group)
     return metrics
 
 
 def train_iteration(runner: RunnerState, env_params: EnvParams, cfg: A2CConfig,
-                    collect_fn=None) -> tuple[RunnerState, dict[str, torch.Tensor]]:
+                    collect_fn=None, group=None
+                    ) -> tuple[RunnerState, dict[str, torch.Tensor]]:
     """One A2C iteration: collect (``collect_fn``, default
     :func:`ppo.collect_rollout`; :func:`ppo.collect_rollout_fused` for the
     kernel) -> advantages -> one gradient step with the runner's
-    optimiser. Returns (runner, metrics: ``loss``, ``pg_loss``,
-    ``v_loss``, ``entropy``, ``mean_reward``)."""
+    optimiser, averaged over ``group``'s ranks. Returns (runner, metrics:
+    ``loss``, ``pg_loss``, ``v_loss``, ``entropy``, ``mean_reward``)."""
     collect_fn = collect_fn or collect_rollout
     runner, traj, last_value = collect_fn(runner, env_params, cfg)
     adv, returns = compute_gae(traj, last_value, cfg)
@@ -185,7 +196,7 @@ def train_iteration(runner: RunnerState, env_params: EnvParams, cfg: A2CConfig,
             (n,) + getattr(traj, name).shape[2:]) for name in TRAJ_FIELDS})
         loss, metrics = a2c_loss(runner.model, flat, adv.reshape(n),
                                  returns.reshape(n), cfg)
-    return runner, _step(runner.optimizer, loss, metrics, traj)
+    return runner, _step(runner.optimizer, loss, metrics, traj, group)
 
 
 # ---------------------------------------------------------------------------
@@ -323,16 +334,34 @@ def recurrent_a2c_loss(model: RecurrentActorCritic, traj: Transition, init_carry
 
 def train_iteration_recurrent(
     runner: RecurrentRunnerState, env_params: EnvParams, cfg: A2CConfig,
-    collect_fn=None,
+    collect_fn=None, group=None,
 ) -> tuple[RecurrentRunnerState, dict[str, torch.Tensor]]:
     """One recurrent A2C iteration: collect (``collect_fn``, default
     :func:`collect_recurrent_rollout`; :func:`collect_recurrent_rollout_fused`
     for the kernel) -> advantages -> one full-batch BPTT step from the
-    carry the window started with. Returns (runner, metrics)."""
+    carry the window started with, averaged over ``group``'s ranks.
+    Returns (runner, metrics)."""
     collect_fn = collect_fn or collect_recurrent_rollout
     init_carry = _flat_carry(runner.carry, runner.obs.shape[0])
     runner, traj, last_value = collect_fn(runner, env_params, cfg)
     adv, returns = compute_gae(traj, last_value, cfg)
     loss, metrics = recurrent_a2c_loss(runner.model, traj, init_carry, adv,
                                        returns, cfg)
-    return runner, _step(runner.optimizer, loss, metrics, traj)
+    return runner, _step(runner.optimizer, loss, metrics, traj, group)
+
+
+def recurrent_runner_specs() -> RecurrentRunnerState:
+    """Which leaves of a :class:`RecurrentRunnerState` are this rank's
+    share of the envs and which are replicated, as
+    :func:`gym_futbol_tpu_torch.parallel.ppo_runner_specs` gives them for
+    PPO's runner: the carries ``[2, B, H]`` hold the envs on dim 1."""
+    from .parallel.rollout import ENV, PER_RANK, REPLICATED, Sharded
+
+    return RecurrentRunnerState(
+        model=REPLICATED,
+        env_state=EnvState(pos=ENV, vel=ENV, possession=ENV, score=ENV, t=ENV),
+        obs=ENV,
+        carry=(Sharded(1), Sharded(1)),
+        generator=PER_RANK,
+        optimizer=REPLICATED,
+    )

@@ -278,3 +278,75 @@ def step(
         info=info,
     )
     return new_state, out
+
+
+# ---------------------------------------------------------------------------
+# Gym-style wrapper (one env, host loop)
+# ---------------------------------------------------------------------------
+
+
+class FutbolEnv:
+    """A stateful, Gym-convention wrapper over one env: the reference's
+    class surface, as the JAX package's ``FutbolEnv`` gives it:
+    ``reset() -> obs``, ``step(a) -> (obs, reward, done, info)``,
+    ``render()``, ``action_space``, ``observation_space``. No auto-reset:
+    after ``done`` the episode's clock runs on until ``reset()``.
+
+    The env is a batch of one on ``device`` (the card unless ``"cpu"``);
+    ``obs``, ``reward`` and ``info``'s values come back without the batch
+    axis, ``done`` as a bool. Kick and kickoff noise are drawn from the
+    env's own generator (:attr:`generator`, seeded by ``seed``). For
+    throughput use :mod:`gym_futbol_tpu_torch.vector` or the kernels:
+    one plain step here launches tens of thousands of small operations."""
+
+    def __init__(self, params: EnvParams | None = None, seed: int = 0,
+                 dtype=torch.float32, device: torch.device | str = "cuda"):
+        from .spaces import Box, MultiDiscrete
+
+        self.params = params or EnvParams()
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._state: EnvState | None = None
+        self.action_space = MultiDiscrete([[5, 5]] * self.params.n_players,
+                                          device=self.device)
+        self.observation_space = Box(-float("inf"), float("inf"),
+                                     shape=(obs_size(self.params),), dtype=dtype,
+                                     device=self.device)
+
+    def seed(self, seed: int) -> None:
+        self.generator.manual_seed(seed)
+
+    def reset(self) -> torch.Tensor:
+        self._state, obs = reset(self.generator, self.params, 1, self.device,
+                                 self.dtype)
+        return obs[0]
+
+    def step(self, actions):
+        """``actions``: ``[n_players, 2]`` ints (direction, act) per player.
+        Returns (obs ``[obs_dim]``, reward (team 0's, 0-dim), done, info)."""
+        if self._state is None:
+            raise RuntimeError("call reset() before step()")
+        a = torch.as_tensor(actions, dtype=torch.int32, device=self.device
+                            ).reshape(1, self.params.n_players, 2)
+        theta, noise = sample_step_noise(self.generator, self.params, 1,
+                                         self.device, self.dtype)
+        self._state, out = step(self._state, a, theta, noise, self.params)
+        return (out.obs[0], out.reward[0], bool(out.done[0]),
+                {k: v[0] for k, v in out.info.items()})
+
+    @property
+    def state(self) -> EnvState | None:
+        """The env's state without the batch axis (``pos`` ``[n_bodies,
+        2]``, ``possession`` and ``t`` 0-dim, ``score`` ``[2]``), or None
+        before ``reset()``."""
+        if self._state is None:
+            return None
+        s = self._state
+        return EnvState(pos=s.pos[0], vel=s.vel[0], possession=s.possession[0],
+                        score=s.score[0], t=s.t[0])
+
+    def render(self, mode: str = "rgb_array"):
+        from .render import render_state
+
+        return render_state(self.state, self.params, mode=mode)

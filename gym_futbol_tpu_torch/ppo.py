@@ -32,6 +32,13 @@ Two updates take that experience through ``cfg.epochs`` x
 :func:`update_epochs_fused`, each minibatch's forward and hand-written
 backward in the kernels of :mod:`gym_futbol_tpu_torch.ops.fused_update`.
 :func:`train_iteration` chains collect, GAE and update.
+
+Each takes ``group``, a ``torch.distributed`` process group over which
+the envs are sharded (:mod:`gym_futbol_tpu_torch.parallel`; None: an
+undistributed run, the default): the updates average each minibatch's
+gradients and metrics over the ranks in one all-reduce before the
+optimiser's clip (:func:`average_grads`), the normalisers merge every
+rank's moments, and ``mean_reward`` is the mean over all envs.
 """
 
 from __future__ import annotations
@@ -191,6 +198,25 @@ class RunnerState:
         return dataclasses.replace(self, **kw)
 
 
+def average_grads(params, metrics: dict, group) -> dict:
+    """The ``.grad`` of each of ``params`` and the 0-dim ``metrics``
+    averaged over ``group``'s ranks in ONE all-reduce, the gradients in
+    place (the JAX package's ``pmean`` of both, ``ppo.py:711-713``). It
+    comes before the optimiser's global-norm clip, which then clips the
+    averaged gradients, as optax does. With ``group`` None, nothing
+    changes. Returns the metrics."""
+    if group is None:
+        return metrics
+    from .parallel.mesh import all_mean
+
+    grads = [p.grad for p in params]
+    names = list(metrics)
+    out = all_mean(grads + [metrics[k] for k in names], group)
+    for g, mean in zip(grads, out):
+        g.copy_(mean)
+    return dict(zip(names, out[len(grads):]))
+
+
 def _both_views(obs: torch.Tensor, env_params: EnvParams) -> torch.Tensor:
     """``[B, F]`` world obs -> ``[2B, F]``: rows ``[:B]`` the team-0 view,
     rows ``[B:]`` the team-1 view (:func:`env.mirror_obs`)."""
@@ -219,7 +245,7 @@ def collect_rollout(
 
 
 def make_normalized_collect(normalize_obs: bool = True,
-                            normalize_reward: bool = True):
+                            normalize_reward: bool = True, group=None):
     """:func:`collect_rollout` with VecNormalize semantics, the JAX
     package's ``make_normalized_collect``: the policy acts on, and the
     buffer stores, z-scored observations and rewards divided by the
@@ -230,10 +256,12 @@ def make_normalized_collect(normalize_obs: bool = True,
     ``x -> 1 - x`` holds for field coordinates, not for z-scores), then
     normalised with one set of statistics, updated on both; the reward
     statistics follow team 0's reward; the bootstrap value reads the
-    statistics after the last step, without updating them. Returns a
-    drop-in for :func:`collect_rollout`."""
+    statistics after the last step, without updating them. With ``group``
+    every step merges the moments of every rank's share, so each rank
+    applies the one global normaliser. Returns a drop-in for
+    :func:`collect_rollout`."""
     return functools.partial(_collect, normalize_obs=normalize_obs,
-                             normalize_reward=normalize_reward)
+                             normalize_reward=normalize_reward, group=group)
 
 
 def _check_norms(runner: RunnerState, normalize_obs: bool,
@@ -248,7 +276,7 @@ def _check_norms(runner: RunnerState, normalize_obs: bool,
 def _collect(
     runner: RunnerState, env_params: EnvParams, cfg: PPOConfig,
     action_uniforms: torch.Tensor | None = None, *,
-    normalize_obs: bool = False, normalize_reward: bool = False,
+    normalize_obs: bool = False, normalize_reward: bool = False, group=None,
 ) -> tuple[RunnerState, Transition, torch.Tensor]:
     model = runner.model
     _check_model(model, env_params)
@@ -259,14 +287,15 @@ def _collect(
     for t in range(cfg.rollout_steps):
         obs2 = _both_views(obs, env_params)
         if normalize_obs:
-            onorm = onorm.update(obs2)
+            onorm = onorm.update(obs2, group)
             obs2 = onorm.normalize(obs2)
         logits, value = model(obs2)
         u = None if action_uniforms is None else action_uniforms[t]
         state, out, tr = selfplay_step(state, obs2, logits, value, u, gen,
                                        env_params)
         if normalize_reward:
-            rnorm = rnorm.update(out.team_reward[:, 0], out.done, cfg.gamma)
+            rnorm = rnorm.update(out.team_reward[:, 0], out.done, cfg.gamma,
+                                 group)
             tr.reward = rnorm.normalize(tr.reward)
         steps.append(tr)
         obs = out.obs
@@ -337,7 +366,7 @@ def unfold_obs_norm_grads(g: tuple, mean: torch.Tensor,
 def collect_rollout_fused(
     runner: RunnerState, env_params: EnvParams, cfg: PPOConfig,
     uniforms: torch.Tensor | None = None, compute_dtype=torch.bfloat16,
-    normalize_obs: bool = False, normalize_reward: bool = False,
+    normalize_obs: bool = False, normalize_reward: bool = False, group=None,
 ) -> tuple[RunnerState, Transition, torch.Tensor]:
     """:func:`collect_rollout` on the fused kernel: both views' forward,
     sampling, the env step and auto-reset for all T steps in one launch
@@ -357,7 +386,8 @@ def collect_rollout_fused(
     :func:`update_epochs_fused`; the raw buffer's moments then merge into
     ``obs_norm`` for the next iteration (:func:`merge_buffer_moments`),
     and the rewards are scaled by :func:`posthoc_reward_norm`, the
-    plain normalised collect's per-step sequence replayed."""
+    plain normalised collect's per-step sequence replayed; with ``group``
+    both merge every rank's moments."""
     from .ops import pack_state, unpack_state
     from .ops.fused_collect import flatten_actor_critic, fused_collect
 
@@ -389,10 +419,10 @@ def collect_rollout_fused(
     obs_norm, rew_norm = runner.obs_norm, runner.rew_norm
     if normalize_obs:
         obs_norm = merge_buffer_moments(obs_norm, traj.obs,
-                                        env_core.obs_size(env_params))
+                                        env_core.obs_size(env_params), group)
     if normalize_reward:
         rew_norm, traj.reward = posthoc_reward_norm(rew_norm, traj.reward,
-                                                    traj.done, cfg.gamma)
+                                                    traj.done, cfg.gamma, group)
     env_state = unpack_state(sf, si, env_params)
     runner = runner.replace(env_state=env_state,
                             obs=env_core.observe(env_state, env_params),
@@ -401,40 +431,61 @@ def collect_rollout_fused(
 
 
 def merge_buffer_moments(obs_norm: RunningNorm, obs_fm: torch.Tensor,
-                         n_feat: int) -> RunningNorm:
+                         n_feat: int, group=None) -> RunningNorm:
     """``obs_norm`` with the moments of a feature-major ``[F_pad, N]``
     buffer merged in: its ``n_feat`` real rows only (never the zero pad
-    rows), one reduction along each row, no transpose."""
+    rows), one reduction along each row, no transpose. With ``group`` the
+    buffer is this rank's share of the batch."""
     rows = obs_fm[:n_feat]
     var, mean = torch.var_mean(rows, dim=1, correction=0)
     return obs_norm.update_moments(
         mean, var, torch.full((), rows.shape[1], dtype=rows.dtype,
-                              device=rows.device))
+                              device=rows.device), group)
 
 
 def posthoc_reward_norm(rew_norm: RewardNorm, reward: torch.Tensor,
-                        done: torch.Tensor, gamma: float):
+                        done: torch.Tensor, gamma: float, group=None):
     """VecNormalize reward scaling after a fused collect, over its ``[T,
     2B]`` buffers: step by step, the update and scaling of the plain
     normalised collect (:func:`make_normalized_collect`): the statistics
     follow team 0's rows, both views are scaled by the statistics through
     that step. Returns (the updated :class:`RewardNorm`, the scaled
-    rewards ``[T, 2B]``)."""
+    rewards ``[T, 2B]``).
+
+    The discounted returns, and so their batch moments, do not depend on
+    the running statistics: all T steps' moments are computed first,
+    each by the same operations as :meth:`RewardNorm.update`, and with
+    ``group`` merged across the ranks in one all-reduce of the stacked
+    moments (:func:`wrappers.global_moments`) instead of T; the merges
+    then run in sequence. Bitwise the per-step sequence."""
+    from .wrappers import global_moments
+
     b = reward.shape[1] // 2
-    scaled = torch.empty_like(reward)
+    steps, acc = [], rew_norm
     for t in range(reward.shape[0]):
-        rew_norm = rew_norm.update(reward[t, :b], done[t, :b], gamma)
+        ret, *moments = acc.returns(reward[t, :b], gamma)
+        acc = dataclasses.replace(acc, ret=torch.where(done[t, :b], 0.0, ret))
+        steps.append((ret, moments))
+    if group is not None:
+        stacked = global_moments(*(torch.stack(m) for m in zip(*(
+            moments for _, moments in steps))), group)
+        steps = [(ret, m) for (ret, _), m in zip(steps, zip(*(
+            x.unbind() for x in stacked)))]
+    scaled = torch.empty_like(reward)
+    for t, (ret, moments) in enumerate(steps):
+        rew_norm = rew_norm.merge(ret, done[t, :b], *moments)
         scaled[t] = rew_norm.normalize(reward[t])
     return rew_norm, scaled
 
 
 def make_fused_normalized_collect(normalize_obs: bool = True,
-                                  normalize_reward: bool = True):
+                                  normalize_reward: bool = True, group=None):
     """The fused twin of :func:`make_normalized_collect`: a drop-in for
-    :func:`collect_rollout_fused` with the given normalisations; pair it
-    with :func:`update_epochs_fused`, which reads ``traj.norm``."""
+    :func:`collect_rollout_fused` with the given normalisations (with
+    ``group``: the global statistics); pair it with
+    :func:`update_epochs_fused`, which reads ``traj.norm``."""
     return functools.partial(collect_rollout_fused, normalize_obs=normalize_obs,
-                             normalize_reward=normalize_reward)
+                             normalize_reward=normalize_reward, group=group)
 
 
 def compute_gae(
@@ -570,7 +621,7 @@ def _mean_metrics(history: list[dict]) -> dict[str, torch.Tensor]:
 def update_epochs(
     model: ActorCritic, optimizer: Optimizer, traj: Transition,
     adv: torch.Tensor, returns: torch.Tensor, generator: torch.Generator,
-    cfg: PPOConfig, perms: torch.Tensor | None = None,
+    cfg: PPOConfig, perms: torch.Tensor | None = None, group=None,
 ) -> dict[str, torch.Tensor]:
     """``cfg.epochs`` x ``cfg.minibatches`` optimiser steps of
     :func:`ppo_loss` under autograd over the flattened buffer, shuffled
@@ -578,8 +629,10 @@ def update_epochs(
     epoch; module docstring). ``traj.obs`` may be feature-major
     ``[F, N]`` or row-major ``[T, 2B, F]``. A normalised fused collect's
     trajectory (``traj.norm`` set, raw obs) is refused: it belongs to
-    :func:`update_epochs_fused`, which folds the statistics in. Updates
-    ``model`` in place; returns each metric's mean over the steps."""
+    :func:`update_epochs_fused`, which folds the statistics in. With
+    ``group`` each step's gradients and metrics are averaged over the
+    ranks first (:func:`average_grads`). Updates ``model`` in place;
+    returns each metric's mean over the steps."""
     if traj.norm is not None:
         raise ValueError(
             "a normalised fused trajectory (traj.norm set, raw obs) is "
@@ -610,8 +663,10 @@ def update_epochs(
                 model, obs_blk[:, idx].reshape(f_dim, mb_size), f["dirs"],
                 f["acts"], f["logp"], f["value"], f["adv"], f["ret"], cfg)
             loss.backward()
+            metrics = average_grads(optimizer.params, {
+                k: v.detach() for k, v in metrics.items()}, group)
             optimizer.step()
-            history.append({k: v.detach() for k, v in metrics.items()})
+            history.append(metrics)
     return _mean_metrics(history)
 
 
@@ -619,7 +674,7 @@ def update_epochs_fused(
     model: ActorCritic, optimizer: Optimizer, traj: Transition,
     adv: torch.Tensor, returns: torch.Tensor, generator: torch.Generator,
     cfg: PPOConfig, perms: torch.Tensor | None = None,
-    compute_dtype=torch.bfloat16,
+    compute_dtype=torch.bfloat16, group=None,
 ) -> dict[str, torch.Tensor]:
     """:func:`update_epochs` on the fused minibatch gradient
     (:func:`ops.fused_update.fused_minibatch_grad`): each minibatch's
@@ -632,7 +687,9 @@ def update_epochs_fused(
     obs) every launch gets the weights with those statistics folded in
     (:func:`fold_obs_norm`), as the collect acted, and its gradients
     are chained back (:func:`unfold_obs_norm_grads`); the buffer's zero
-    pad rows meet zero weight rows either way."""
+    pad rows meet zero weight rows either way. With ``group`` each
+    launch's gradients and metrics are averaged over the ranks before the
+    optimiser step (:func:`average_grads`)."""
     from .ops.fused_collect import flatten_actor_critic
     from .ops.fused_update import fused_minibatch_grad, unflatten_actor_critic
 
@@ -673,17 +730,18 @@ def update_epochs_fused(
             if scales is not None:
                 grads = unfold_obs_norm_grads(grads, *scales)
             unflatten_actor_critic(grads, model)
-            optimizer.step()
             metrics = {k: v * inv_m for k, v in sums.items()}
             metrics["loss"] = (metrics["pg_loss"] + cfg.vf_coef * metrics["v_loss"]
                                - cfg.ent_coef * metrics["entropy"])
+            metrics = average_grads(optimizer.params, metrics, group)
+            optimizer.step()
             history.append(metrics)
     return _mean_metrics(history)
 
 
 def train_iteration(
     runner: RunnerState, env_params: EnvParams, cfg: PPOConfig,
-    collect_fn=None, update_fn=None,
+    collect_fn=None, update_fn=None, group=None,
 ) -> tuple[RunnerState, dict[str, torch.Tensor]]:
     """One PPO iteration: collect (``collect_fn``, default
     :func:`collect_rollout`; :func:`collect_rollout_fused` for the kernel)
@@ -691,16 +749,28 @@ def train_iteration(
     :func:`update_epochs`; :func:`update_epochs_fused` for the kernel)
     with the runner's optimiser. Returns (runner, metrics): the update's
     mean ``loss``, ``pg_loss``, ``v_loss``, ``entropy``, ``approx_kl``
-    and ``mean_reward`` over the team-0 rows, as 0-dim tensors."""
+    and ``mean_reward`` over the team-0 rows, as 0-dim tensors. With
+    ``group`` (the runner one rank's share, as ``parallel.shard_runner``
+    gives it) the update averages over the ranks and ``mean_reward`` is
+    the mean over every rank's envs; a normalised ``collect_fn`` takes
+    the group when it is made (:func:`make_normalized_collect`)."""
     collect_fn = collect_fn or collect_rollout
     update_fn = update_fn or update_epochs
     runner, traj, last_value = collect_fn(runner, env_params, cfg)
     adv, returns = compute_gae(traj, last_value, cfg)
     metrics = update_fn(runner.model, runner.optimizer, traj, adv, returns,
-                        runner.generator, cfg)
-    # rows [:B] are team 0's view, as evaluate() reports
-    metrics["mean_reward"] = traj.reward[:, : traj.reward.shape[1] // 2].mean()
+                        runner.generator, cfg, group=group)
+    metrics["mean_reward"] = mean_reward(traj, group)
     return runner, metrics
+
+
+def mean_reward(traj: Transition, group=None) -> torch.Tensor:
+    """The mean reward of the team-0 rows ``[:B]`` (as ``evaluate``
+    reports it), over every rank's envs with ``group``."""
+    from .parallel.mesh import all_mean
+
+    return all_mean([traj.reward[:, : traj.reward.shape[1] // 2].mean()],
+                    group)[0]
 
 
 def init_runner(

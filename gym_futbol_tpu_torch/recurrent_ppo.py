@@ -16,6 +16,10 @@ same collect and runner:
   sequences (degrading to the largest divisor, as ``ppo``'s blocks), and
   a block count the minibatches do not divide is refused, where the JAX
   package drops the leftover blocks.
+
+With ``group`` (a ``torch.distributed`` process group over which the
+envs are sharded) each minibatch's gradients and metrics are averaged
+over the ranks before the optimiser step.
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ from .ppo import (
     _epoch_perms,
     _mean_metrics,
     _shuffle_block_for,
+    average_grads,
     clipped_surrogate,
     compute_gae,
+    mean_reward,
 )
 from .types import EnvParams
 
@@ -103,7 +109,7 @@ def update_epochs_recurrent(
     model: RecurrentActorCritic, optimizer: ppo.Optimizer, traj: Transition,
     init_carry, adv: torch.Tensor, returns: torch.Tensor,
     generator: torch.Generator, cfg: PPOConfig,
-    perms: torch.Tensor | None = None,
+    perms: torch.Tensor | None = None, group=None,
 ) -> dict[str, torch.Tensor]:
     """``cfg.epochs`` x ``cfg.minibatches`` optimiser steps of
     :func:`recurrent_ppo_loss`, minibatched over the sequence axis in
@@ -111,8 +117,10 @@ def update_epochs_recurrent(
     permutation per epoch, drawn from ``generator`` or given as ``perms``
     ``[epochs, n_blocks]``). ``traj`` fields are ``[T, S(, F)]``,
     ``init_carry`` ``[S, H]`` each. Raises if the minibatches do not
-    divide the block count. Updates ``model`` in place; returns each
-    metric's mean over the steps."""
+    divide the block count. With ``group`` each step's gradients and
+    metrics are averaged over the ranks first (:func:`ppo.average_grads`).
+    Updates ``model`` in place; returns each metric's mean over the
+    steps."""
     t, s = traj.reward.shape
     block = _shuffle_block_for(s, cfg)
     n_blocks = s // block
@@ -142,14 +150,16 @@ def update_epochs_recurrent(
                 tuple(c[idx].reshape(mb, -1) for c in carry_blk),
                 take(adv_blk), take(ret_blk), cfg)
             loss.backward()
+            metrics = average_grads(optimizer.params, {
+                k: v.detach() for k, v in metrics.items()}, group)
             optimizer.step()
-            history.append({k: v.detach() for k, v in metrics.items()})
+            history.append(metrics)
     return _mean_metrics(history)
 
 
 def train_iteration_recurrent_ppo(
     runner: RecurrentRunnerState, env_params: EnvParams, cfg: PPOConfig,
-    collect_fn=None, update_fn=None,
+    collect_fn=None, update_fn=None, group=None,
 ) -> tuple[RecurrentRunnerState, dict[str, torch.Tensor]]:
     """One recurrent PPO iteration: collect (``collect_fn``, default
     :func:`a2c.collect_recurrent_rollout`;
@@ -157,13 +167,14 @@ def train_iteration_recurrent_ppo(
     the epochs of ``update_fn`` (default :func:`update_epochs_recurrent`)
     from the carry the window started with. Returns (runner, metrics:
     the update's mean ``loss``, ``pg_loss``, ``v_loss``, ``entropy``,
-    ``approx_kl`` and the team-0 rows' ``mean_reward``)."""
+    ``approx_kl`` and the team-0 rows' ``mean_reward``), both averaged
+    over ``group``'s ranks."""
     collect_fn = collect_fn or collect_recurrent_rollout
     update_fn = update_fn or update_epochs_recurrent
     init_carry = _flat_carry(runner.carry, runner.obs.shape[0])
     runner, traj, last_value = collect_fn(runner, env_params, cfg)
     adv, returns = compute_gae(traj, last_value, cfg)
     metrics = update_fn(runner.model, runner.optimizer, traj, init_carry, adv,
-                        returns, runner.generator, cfg)
-    metrics["mean_reward"] = traj.reward[:, : traj.reward.shape[1] // 2].mean()
+                        returns, runner.generator, cfg, group=group)
+    metrics["mean_reward"] = mean_reward(traj, group)
     return runner, metrics

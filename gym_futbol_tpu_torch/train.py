@@ -35,6 +35,23 @@ so ``--iters`` is the run's total. ``--log-dir`` appends every record to
 ``metrics.jsonl`` there (and TensorBoard when it imports).
 ``--debug-nans`` turns on autograd's anomaly detection and checks after
 every iteration that the metrics, parameters and statistics are finite.
+
+``--distributed`` shards the envs over the ranks of a torchrun launch
+(one process per rank; :mod:`gym_futbol_tpu_torch.parallel`)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m gym_futbol_tpu_torch.train --distributed --envs 16384 \
+        --fused-collect
+
+Every rank builds the whole runner from ``--seed`` and keeps its equal
+share of the ``--envs`` envs (which must divide evenly over the ranks)
+and a generator stream of its own; each minibatch's gradients and the
+normalisers' moments are averaged over the ranks. Each rank runs on its
+own device (``cuda:LOCAL_RANK`` modulo the cards; NCCL when every rank
+has a card, gloo when ranks share one or with ``--device cpu``). Rank 0
+alone prints the records, writes ``metrics.jsonl`` and runs
+``--eval-episodes``; every rank saves and resumes its own checkpoint, and
+a resume over another number of ranks is refused.
 """
 
 from __future__ import annotations
@@ -108,6 +125,10 @@ def main(argv: list[str] | None = None):
                     help="autograd anomaly detection, and a check after every "
                          "iteration that the metrics, parameters and "
                          "normaliser statistics are finite (debugging only)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="shard the envs over the ranks of a torchrun launch "
+                         "(one process per rank, gradients averaged over "
+                         "them); rank 0 prints and logs")
     args = ap.parse_args(argv)
     if args.algo == "a2c" and args.lr_anneal:
         raise SystemExit("--lr-anneal is wired into the PPO optimiser only "
@@ -142,6 +163,25 @@ def _run(args):
     from .utils.metrics import MetricsLogger, to_python
 
     device = torch.device(args.device)
+    group, rank = None, 0
+    if args.distributed:
+        import torch.distributed as dist
+
+        from .parallel import (
+            env_group,
+            init_distributed,
+            rank_device,
+            shard_runner,
+            shard_train_iteration,
+        )
+
+        started = init_distributed(force=True, device=device)
+        rank, world, group = env_group()
+        device = rank_device(device)
+        if args.envs % world:
+            raise SystemExit(f"--envs {args.envs} must divide evenly over "
+                             f"{world} ranks")
+    lead = rank == 0
     env_params = EnvParams(players_per_team=args.ppt, max_steps=args.max_steps)
     rollout_steps = args.rollout_steps
     if rollout_steps is None and args.recurrent:
@@ -188,23 +228,27 @@ def _run(args):
                 collect_fn = (ppo.make_fused_normalized_collect
                               if args.fused_collect else
                               ppo.make_normalized_collect)(
-                    args.normalize_obs, args.normalize_reward)
+                    args.normalize_obs, args.normalize_reward, group)
             update_fn = (ppo.update_epochs_fused
                          if args.fused_collect and not args.no_fused_update
                          else None)
             iteration_fn = functools.partial(
                 ppo.train_iteration, collect_fn=collect_fn, update_fn=update_fn)
+    if args.distributed:
+        runner = shard_runner(runner, group)
+        iteration_fn = shard_train_iteration(iteration_fn, group)
 
     ckpt, start = None, 0
     if args.checkpoint_dir:
         from .utils.checkpoint import Checkpointer
 
-        ckpt = Checkpointer(args.checkpoint_dir)
+        ckpt = Checkpointer(args.checkpoint_dir, group=group)
         restored, start = ckpt.restore_latest(runner)
         if restored is not None:
             runner = restored
-            print(f"# resumed from iteration {start}", flush=True)
-    mlog = MetricsLogger(args.log_dir)
+            if lead:
+                print(f"# resumed from iteration {start}", flush=True)
+    mlog = MetricsLogger(args.log_dir if lead else None)
     steps_per_iter = args.envs * cfg.rollout_steps
     saved = start
     t_start = time.perf_counter()
@@ -215,7 +259,7 @@ def _run(args):
         dt = time.perf_counter() - t0
         if args.debug_nans:
             _check_finite(it, metrics, runner)
-        if it % args.log_every == 0:
+        if it % args.log_every == 0 and lead:
             print(json.dumps(mlog.write(it, {
                 "env_steps_per_sec": round(steps_per_iter / dt),
                 **{k: round(v, 5) for k, v in metrics.items()},
@@ -228,7 +272,7 @@ def _run(args):
     if ckpt and saved < args.iters:
         ckpt.save(runner, args.iters)
     mlog.close()
-    if args.eval_episodes:
+    if args.eval_episodes and lead:
         from .evaluate import (
             evaluate_fused,
             evaluate_recurrent,
@@ -255,12 +299,16 @@ def _run(args):
             "goals_per_episode": [round(float(g), 4)
                                   for g in res["goals_per_episode"]],
         }}), flush=True)
-    print(json.dumps({
-        "done": True,
-        "total_env_steps": steps_per_iter * n_iters,
-        "wall_s": round(total, 2),
-        "env_steps_per_sec": round(steps_per_iter * n_iters / total),
-    }), flush=True)
+    if lead:
+        print(json.dumps({
+            "done": True,
+            "total_env_steps": steps_per_iter * n_iters,
+            "wall_s": round(total, 2),
+            "env_steps_per_sec": round(steps_per_iter * n_iters / total),
+        }), flush=True)
+    if args.distributed and started:
+        dist.barrier()
+        dist.destroy_process_group()
     return runner
 
 

@@ -1,1 +1,2 @@
-"""Checkpoints and the metrics log of a training run."""
+"""Checkpoints, the metrics log and the timing helpers of a training
+run."""

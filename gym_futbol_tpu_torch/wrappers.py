@@ -7,10 +7,10 @@ dataclass of tensors on one device plus a step function over
 writes into the tensors of the old one, so a runner may hold one while
 another is made from it.
 
-The JAX package's ``axis_name`` (a mean of the batch statistics across a
-device mesh, for sharded training) is left out: the statistics here are
-those of the batch each call sees. The all-reduce comes with the
-distributed learner.
+The JAX package's ``axis_name`` is ``group`` here: with a process group
+of equal env shares (:mod:`gym_futbol_tpu_torch.parallel`), each update
+merges the moments of the whole batch across the ranks
+(:func:`global_moments`), so every rank carries the one global normaliser.
 """
 
 from __future__ import annotations
@@ -74,6 +74,29 @@ def step_with_stats(
 # ---------------------------------------------------------------------------
 
 
+def global_moments(b_mean: torch.Tensor, b_var: torch.Tensor,
+                   b_count: torch.Tensor, group):
+    """A batch's moments (mean, population variance, count; tensors of one
+    shape, or several batches' stacked elementwise) -> those of
+    the union of every rank's equal share in ``group``: the mean of the
+    means, the mean of ``var + mean**2`` less the squared mean, the count
+    times the world size (the JAX package's ``wrappers.py:114-121``; one
+    all-reduce, which also carries the counts: unequal shares raise
+    ``ValueError`` on every rank). With ``group`` None or of one rank, the
+    moments as given."""
+    from .parallel.mesh import all_mean, rank_and_size
+
+    world = rank_and_size(group)[1]
+    if world == 1:
+        return b_mean, b_var, b_count
+    g_mean, g_sq, c_mean, c_sq = all_mean(
+        [b_mean, b_var + b_mean ** 2, b_count, b_count ** 2], group)
+    if bool((c_sq - c_mean ** 2 != 0).any()):
+        raise ValueError("the ranks' batches differ in size: the normaliser "
+                         "needs an equal share of the envs on every rank")
+    return g_mean, g_sq - g_mean ** 2, b_count * world
+
+
 def _merge(mean, var, count, b_mean, b_var, b_count):
     """Chan et al.'s parallel merge of (mean, population variance, count)
     with a batch's, in the JAX package's order of operations."""
@@ -100,18 +123,21 @@ class RunningNorm:
                    var=torch.ones((obs_dim,), dtype=dtype, device=device),
                    count=torch.full((), 1e-4, dtype=dtype, device=device))
 
-    def update(self, obs: torch.Tensor) -> "RunningNorm":
-        """Merge the batch ``obs`` ``[N, obs_dim]``."""
+    def update(self, obs: torch.Tensor, group=None) -> "RunningNorm":
+        """Merge the batch ``obs`` ``[N, obs_dim]`` (with ``group``: every
+        rank's equal share of it, :func:`global_moments`)."""
         var, mean = torch.var_mean(obs, dim=0, correction=0)
         return self.update_moments(
             mean, var, torch.full((), obs.shape[0], dtype=obs.dtype,
-                                  device=obs.device))
+                                  device=obs.device), group)
 
     def update_moments(self, b_mean: torch.Tensor, b_var: torch.Tensor,
-                       b_count: torch.Tensor) -> "RunningNorm":
+                       b_count: torch.Tensor, group=None) -> "RunningNorm":
         """Merge a batch given by its moments (mean and population
         variance ``[obs_dim]``, count ``[]``): a feature-major buffer
-        updates the statistics without a row-major copy."""
+        updates the statistics without a row-major copy. With ``group``
+        the moments are this rank's share's (:func:`global_moments`)."""
+        b_mean, b_var, b_count = global_moments(b_mean, b_var, b_count, group)
         mean, var, count = _merge(self.mean, self.var, self.count, b_mean,
                                   b_var, b_count)
         return RunningNorm(mean=mean, var=var, count=count)
@@ -125,13 +151,14 @@ class RunningNorm:
 def step_normalized(
     state: EnvState, norm: RunningNorm, actions: torch.Tensor,
     params: EnvParams, generator: torch.Generator, update: bool = True,
+    group=None,
 ) -> tuple[EnvState, RunningNorm, StepOutput]:
     """:func:`vector.step_batch` returning normalised observations; the
     statistics take in the raw ones first unless ``update`` is false
     (evaluation)."""
     state, out = step_batch(state, actions, params, generator)
     if update:
-        norm = norm.update(out.obs)
+        norm = norm.update(out.obs, group)
     return state, norm, dataclasses.replace(out, obs=norm.normalize(out.obs))
 
 
@@ -159,18 +186,32 @@ class RewardNorm:
                    var=torch.ones((), dtype=dtype, device=device),
                    count=torch.full((), 1e-4, dtype=dtype, device=device))
 
-    def update(self, reward: torch.Tensor, done: torch.Tensor,
-               gamma: float = 0.99) -> "RewardNorm":
-        """Fold one step's rewards ``[B]`` into the return statistics; the
-        return accumulator restarts from 0 where ``done``."""
+    def returns(self, reward: torch.Tensor, gamma: float = 0.99):
+        """One step's discounted returns ``self.ret * gamma + reward``
+        ``[B]`` and their batch moments (mean, population variance,
+        count): what :meth:`update` merges."""
         ret = self.ret * gamma + reward
         b_var, b_mean = torch.var_mean(ret, correction=0)
-        b_count = torch.full((), ret.shape[0], dtype=reward.dtype,
-                             device=reward.device)
+        return ret, b_mean, b_var, torch.full((), ret.shape[0], dtype=reward.dtype,
+                                              device=reward.device)
+
+    def merge(self, ret: torch.Tensor, done: torch.Tensor, b_mean: torch.Tensor,
+              b_var: torch.Tensor, b_count: torch.Tensor) -> "RewardNorm":
+        """The statistics with a step's return moments merged in, and the
+        accumulator ``ret`` restarted from 0 where ``done``."""
         mean, var, count = _merge(self.mean, self.var, self.count, b_mean, b_var,
                                   b_count)
         return RewardNorm(ret=torch.where(done, 0.0, ret), mean=mean, var=var,
                           count=count)
+
+    def update(self, reward: torch.Tensor, done: torch.Tensor,
+               gamma: float = 0.99, group=None) -> "RewardNorm":
+        """Fold one step's rewards ``[B]`` into the return statistics; the
+        return accumulator restarts from 0 where ``done``. With ``group``
+        the batch is this rank's share (:func:`global_moments`)."""
+        ret, b_mean, b_var, b_count = self.returns(reward, gamma)
+        return self.merge(ret, done, *global_moments(b_mean, b_var, b_count,
+                                                     group))
 
     def normalize(self, reward: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
         """``reward / sqrt(var + 1e-8)``, clipped to ``±clip``."""
@@ -180,14 +221,14 @@ class RewardNorm:
 def step_reward_normalized(
     state: EnvState, rnorm: RewardNorm, actions: torch.Tensor,
     params: EnvParams, generator: torch.Generator, gamma: float = 0.99,
-    update: bool = True,
+    update: bool = True, group=None,
 ) -> tuple[EnvState, RewardNorm, StepOutput]:
     """:func:`vector.step_batch` with ``reward`` and ``team_reward``
     divided by the running standard deviation of discounted returns; the
     statistics follow the team-0 reward."""
     state, out = step_batch(state, actions, params, generator)
     if update:
-        rnorm = rnorm.update(out.reward, out.done, gamma)
+        rnorm = rnorm.update(out.reward, out.done, gamma, group)
     return state, rnorm, dataclasses.replace(
         out, reward=rnorm.normalize(out.reward),
         team_reward=rnorm.normalize(out.team_reward))

@@ -185,8 +185,11 @@ def test_port_imports_no_jax():
     """The port imports torch and never JAX, flax, optax or the JAX
     package: with all four made unimportable, every module of the package
     (ppo, train, ops.fused_update, the recurrent learners' a2c,
-    recurrent_ppo, models.recurrent and ops.fused_recurrent, and wrappers,
-    utils.checkpoint and utils.metrics among them) still imports."""
+    recurrent_ppo, models.recurrent and ops.fused_recurrent, wrappers,
+    utils.checkpoint and utils.metrics, and the distribution layer and
+    user-facing surface: parallel.mesh, parallel.rollout, spaces,
+    entities, registry, render and utils.profiling among them) still
+    imports."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'flax', 'optax', 'gym_futbol_tpu'):\n"
@@ -203,7 +206,12 @@ def test_port_imports_no_jax():
         "        'gym_futbol_tpu_torch.ops.fused_recurrent',\n"
         "        'gym_futbol_tpu_torch.wrappers',\n"
         "        'gym_futbol_tpu_torch.utils.checkpoint',\n"
-        "        'gym_futbol_tpu_torch.utils.metrics'} <= set(names)\n"
+        "        'gym_futbol_tpu_torch.utils.metrics',\n"
+        "        'gym_futbol_tpu_torch.parallel.mesh',\n"
+        "        'gym_futbol_tpu_torch.parallel.rollout',\n"
+        "        'gym_futbol_tpu_torch.spaces', 'gym_futbol_tpu_torch.entities',\n"
+        "        'gym_futbol_tpu_torch.registry', 'gym_futbol_tpu_torch.render',\n"
+        "        'gym_futbol_tpu_torch.utils.profiling'} <= set(names)\n"
         "assert not any(k.startswith(('jax', 'flax', 'optax', 'gym_futbol_tpu.'))\n"
         "               and sys.modules[k] for k in sys.modules)\n"
     )
