@@ -22,10 +22,12 @@ port's main paths:
   their plain version and against autograd on real minibatches (a
   collected buffer, after one iteration's updates have moved the
   weights, so that both clips decide some samples' gradients; 3v3, 2v2,
-  custom params and a 5v5 G = 10 head), then train_iteration at bench
-  config 4 (fused collect, GAE, 4 epochs x 4 minibatches of 2^20 samples
-  on the kernels) and once through the training CLI, then the kernels'
-  times beside the CUDA-core chain's and cuBLAS's on the same products;
+  custom params, a 5v5 G = 10 head, and 5v5 and 4v4 at (256, 256), whose
+  W2 is streamed), then train_iteration at bench config 4 (fused collect,
+  GAE, 4 epochs x 4 minibatches of 2^20 samples on the kernels) and once
+  through the training CLI, then the kernels' times beside the CUDA-core
+  chain's and cuBLAS's on the same products, and W2 streamed at config 4
+  (bitwise the resident layout) timed beside resident;
 - phases 14-16, the recurrent learners (fused_recurrent_collect) in
   both routes, bfloat16 on the tensor cores (the main path's) and
   float32 on the CUDA cores (exact): the kernel against its plain
@@ -62,7 +64,15 @@ port's main paths:
   the all-reduce's per minibatch; one rank over NCCL runs the sharded
   fused iteration bitwise equal to the undistributed one; the training
   CLI under torchrun on two ranks (--distributed --fused-collect);
-- phase 19, FutbolEnv on the card through make("futbol-v0").
+- phase 19, FutbolEnv on the card through make("futbol-v0");
+- phase 20, the PPO iteration at bench config 5 (5v5, 65536 envs, T=64,
+  hidden (256, 256), 4 x 4 minibatches of 2^21 samples): train_iteration
+  on the fused collect and K3 in bf16, K3 on the tensor cores with W2
+  streamed through shared memory (its forward block does not fit with W2
+  resident), then with K3 forced to the CUDA-core chain, each split into
+  collect, update and the rest, with their launch counts; K3 alone on a
+  config-5 minibatch against its plain version, timed beside the chain,
+  the plain version, its bound and cuBLAS, and a profile of one update.
 Phase 6 also measures the contact solver's active share (the pairs and
 walls the culled env step updates) at config 3, the 5v5 scale and config
 4, and the env step's operation count, and so every bound that counts
@@ -82,6 +92,7 @@ It needs a CUDA device and nvcc, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib
 import json
@@ -94,6 +105,9 @@ import time
 
 B3, T3 = 4096, 512          # bench config 3: 2v2
 B5, T5 = 65536, 64          # bench config 5 scale: 5v5
+T5_PARITY = 4               # phase 7: K2 at config 5 against its plain version
+H5 = (256, 256)             # phase 20: config 5's PPO iteration, the default torso
+N5_ITERS = 3                # phase 20: timed iterations on each route
 B4, T4, H4 = 16384, 128, (256, 256)   # bench config 4: 3v3 PPO collect
 B6, T6, H6 = 4096, 512, (128, 128)    # bench config 6: 2v2 evaluation
 T_PARITY = 16
@@ -147,7 +161,15 @@ POLICY_BF16_ATOL, FORCED_BF16_ATOL, TIE_FACTOR = 1e-2, 1e-2, 2.0
 # another formulation of the same sums. Metric sums: error relative to
 # the plain version's sum of |per-sample term| (compare_update).
 K3_F32_REL, K3_BF16_REL, K3_AUTOGRAD_REL, K3_METRIC_REL = 1e-4, 1e-3, 1e-4, 1e-4
+# approx_kl's terms, (ratio - 1) - log ratio, vanish on an on-policy
+# minibatch (the weights that collected it: the main path's first of each
+# iteration), where each is float32 noise, the rounding of a ratio near 1.
+# There its sum may also differ by K3_KL_ULPS float32 ulps of 1 a sample.
+K3_KL_ULPS = 4
 K3_BLOCK = 1024             # PPOConfig.shuffle_block
+# Shared memory below config 4's resident forward block (229,504 bytes)
+# and above its streamed one (163,968): W2 streamed where it fits resident
+K3_STREAM_SMEM = 200000
 # The recurrent main path: the JAX recurrent gate at config-4 scale
 # (3v3, 16384 envs, T=16, hidden (128,), LSTM size 128).
 BR, TR, HR, LSTM_R = 16384, 16, (128,), 128
@@ -168,8 +190,18 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+PHASE_SECONDS: dict[str, float] = {}
+_LAST_LINE = [time.perf_counter()]
+
+
 def phase(name: str, msg: str) -> None:
+    """Prints one line of phase ``name``; the seconds since the last line
+    go to its phase number (``name``'s, else the message's first word)."""
     print(f"[{name}] {msg}", flush=True)
+    key = (name if name[0].isdigit() else msg).split()[0]
+    now = time.perf_counter()
+    PHASE_SECONDS[key] = PHASE_SECONDS.get(key, 0.0) + now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
 
 
 def check(cond: bool, what: str) -> None:
@@ -234,6 +266,23 @@ def group_indices(dirs, acts, n_groups):
 
     return torch.stack([((dirs, acts)[g % 2] >> (3 * (g // 2))) & 7
                         for g in range(n_groups)], 2)
+
+
+@contextlib.contextmanager
+def recorded(module, name: str, out: list):
+    """``module.name`` (a function) wrapped inside the block to append
+    each call's result to ``out``."""
+    orig = getattr(module, name)
+
+    def wrapped(*a, **k):
+        out.append(orig(*a, **k))
+        return out[-1]
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
 
 
 def recording(module, name: str, calls: list):
@@ -366,44 +415,58 @@ def policy_phases(dev, custom, shares) -> list[dict]:
     # the main paths' shapes and on the ragged batch; float32 (exact, the
     # CUDA-core route) and bfloat16 (the tensor-core route, the main
     # path's). The kernels line takes each kernel's bf16 error at its own
-    # main path's shape (K2: config 4, K4: config 6); the other cases
+    # main path's shape (K2: config 4, K4: config 6; K2 also at config 5,
+    # phase 20's collect: the same layout, which phase 20 checks, the
+    # selfplay kernel not on that path, float32 bitwise); the other cases
     # must pass all the same.
     f32, bf16 = torch.float32, torch.bfloat16
     ties = {"fused_collect": [], "fused_selfplay_rollout": []}
-    for label, params, hidden, n_envs, philox, main in (
-            (f"config 4 3v3 {H4}", p4, H4, B4, True, "fused_collect"),
-            (f"config 6 2v2 {H6}", p6, H6, B6, True, "fused_selfplay_rollout"),
-            ("custom (32, 16)", custom, (32, 16), B3, False, None),
+    config5 = {}
+    for label, params, hidden, n_envs, n_steps, philox, main in (
+            (f"config 4 3v3 {H4}", p4, H4, B4, T_PARITY, True, "fused_collect"),
+            (f"config 6 2v2 {H6}", p6, H6, B6, T_PARITY, True,
+             "fused_selfplay_rollout"),
+            (f"config 5 5v5 {H5}", EnvParams(players_per_team=5), H5, B5, T5_PARITY,
+             False, "config5"),
+            ("custom (32, 16)", custom, (32, 16), B3, T_PARITY, False, None),
             ("ragged 2v2 (64, 64)", p6.replace(max_steps=7), (64, 64), 1000,
-             True, None)):
+             T_PARITY, True, None)):
         sf, si, model, gen = setup(params, hidden, n_envs, 4)
         w = fc.flatten_actor_critic(model)
         wa = fa.init_mlp(gen, params, hidden, device=dev)
         wb = fa.init_mlp(gen, params, hidden, device=dev)
-        u = torch.rand((T_PARITY, n_draws_per_step(params), n_envs),
+        u = torch.rand((n_steps, n_draws_per_step(params), n_envs),
                        generator=gen, device=dev)
-        tag = f"7 {label} B={n_envs} T={T_PARITY}"
+        tag = f"7 {label} B={n_envs} T={n_steps}"
         draws = [("table", 0, dict(uniforms=u), dict(uniforms=u))]
         if philox:
-            draws.append(("Philox", 5, {}, dict(n_steps=T_PARITY, seed=5)))
+            draws.append(("Philox", 5, {}, dict(n_steps=n_steps, seed=5)))
+        selfplay = main != "config5"
         for mode in (f32, bf16):
             k2, k4 = [], []
             for name, seed, kw, ref_kw in draws:
                 ktag = f"{tag} {str(mode)[6:]}"
-                k2_out = ops.fused_collect(sf, si, w, seed, params, T_PARITY,
-                                           compute_dtype=mode, **kw)
-                k4_out = ops.fused_selfplay_rollout(
-                    sf, si, wa, wb, seed + 1, params, T_PARITY,
-                    return_actions=True, compute_dtype=mode, **kw)
+                plans = []
+                with recorded(fc, "tc_plan", plans):
+                    k2_out = ops.fused_collect(sf, si, w, seed, params, n_steps,
+                                               compute_dtype=mode, **kw)
+                if selfplay:
+                    k4_out = ops.fused_selfplay_rollout(
+                        sf, si, wa, wb, seed + 1, params, n_steps,
+                        return_actions=True, compute_dtype=mode, **kw)
                 ref_kw4 = dict(ref_kw, seed=seed + 1) if "seed" in ref_kw else ref_kw
                 if mode is f32:
                     k2.append(compare_policy(k2_out, fc.fused_collect_reference(
                         sf, si, w, params, compute_dtype=mode, **ref_kw),
                         f"{ktag} collect, {name}", k2_actions))
-                    k4.append(compare_policy(k4_out, fa.fused_selfplay_rollout_reference(
-                        sf, si, wa, wb, params, return_actions=True,
-                        compute_dtype=mode, **ref_kw4),
-                        f"{ktag} selfplay, {name}", k4_actions))
+                    if selfplay:
+                        k4.append(compare_policy(
+                            k4_out, fa.fused_selfplay_rollout_reference(
+                                sf, si, wa, wb, params, return_actions=True,
+                                compute_dtype=mode, **ref_kw4),
+                            f"{ktag} selfplay, {name}", k4_actions))
+                    else:
+                        check(k2[-1] == 0.0, f"{ktag}: float32 not bitwise")
                     continue
                 calls = []
                 orig = recording(fc, "sample_with_logp", calls)
@@ -415,6 +478,13 @@ def policy_phases(dev, custom, shares) -> list[dict]:
                 err, logp_err, n2 = compare_policy_bf16(
                     k2_out, plain, calls, f"{ktag} collect, {name}", k2_actions,
                     (5, 6, 9), (0, 1, 2, 7, 8))
+                k2.append(err)
+                ties["fused_collect"].append(n2)
+                if not selfplay:
+                    config5 = dict(err=err, plan=plans[0] if plans else None,
+                                   near_ties=n2)
+                    phase("7 plan", f"{ktag} collect: {config5['plan']}")
+                    continue
                 calls = []
                 orig = recording(fa, "sample_rows", calls)
                 try:
@@ -427,12 +497,10 @@ def policy_phases(dev, custom, shares) -> list[dict]:
                     k4_out, plain, calls, f"{ktag} selfplay, {name} (near ties "
                     "against the collect's logp error)", k4_actions, (),
                     (0, 1, 2, 3), tie_eps=logp_err)
-                k2.append(err)
                 k4.append(err4)
-                ties["fused_collect"].append(n2)
                 ties["fused_selfplay_rollout"].append(n4)
             if main and mode is bf16:
-                errs[main] = max(k2 if main == "fused_collect" else k4)
+                errs[main] = max(k4 if main == "fused_selfplay_rollout" else k2)
     for name, counts in ties.items():
         total = {k: sum(c[k] for c in counts) for k in counts[0]}
         phase("7 near ties", f"{name} bf16, every case: {total}")
@@ -737,7 +805,12 @@ def policy_phases(dev, custom, shares) -> list[dict]:
          "plain_ms": plain_k2, "bound_ms": bound_k2[0],
          "bound_by": bound_k2[1], "library_ms": None,
          "f32_route_ms": ms_k2_f32, "f32_bound_ms": bound_k2_f32[0],
-         "unit": f"ms per step of the {B4}-env 3v3 batch, hidden {H4}, bfloat16"},
+         "unit": f"ms per step of the {B4}-env 3v3 batch, hidden {H4}, bfloat16",
+         "config5_max_abs_err": config5["err"], "config5_plan": config5["plan"],
+         "config5_near_ties": config5["near_ties"],
+         "config5_unit": f"bfloat16 against the plain bfloat16 version on the "
+                         f"same uniforms, 5v5 B={B5} T={T5_PARITY} hidden {H5}, "
+                         f"in phase 20's layout"},
         {"name": "fused_selfplay_rollout", "route": "cuda",
          "source": POLICY_SOURCE, "replaces": REPLACES["fused_selfplay_rollout"],
          "launches": launches["fused_selfplay_rollout"],
@@ -751,13 +824,15 @@ def policy_phases(dev, custom, shares) -> list[dict]:
 
 
 def compare_update(kernel_out, other_out, terms, label: str,
-                   grad_rel: float, metric_rel: float) -> float:
+                   grad_rel: float, metric_rel: float, on_policy: bool = False) -> float:
     """Gradients and metric sums of fused_minibatch_grad against another
     computation of them: per leaf the max abs error and the rel-L2
     (within ``grad_rel``); each metric sum's error relative to the sum
     of |per-sample term| in ``terms`` (the plain version's, within
-    ``metric_rel``: the surrogate's terms cancel in the sum). Returns the
-    largest absolute gradient error."""
+    ``metric_rel``: the surrogate's terms cancel in the sum); on an
+    ``on_policy`` minibatch approx_kl's may instead be within K3_KL_ULPS
+    float32 ulps of 1 per sample. Returns the largest absolute gradient
+    error."""
     import torch
 
     (kg, km), (pg, pm) = kernel_out, other_out
@@ -770,13 +845,20 @@ def compare_update(kernel_out, other_out, terms, label: str,
         rel = ((k - p).norm() / p.norm().clamp_min(1e-30)).item()
         leaves.append(f"{err:.3g}/{rel:.3g}")
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-    m_err = {k: abs(km[k].item() - pm[k].item())
-             / max(terms[k].abs().sum().item(), 1e-30) for k in km}
+    abs_err = {k: abs(km[k].item() - pm[k].item()) for k in km}
+    m_err = {k: e / max(terms[k].abs().sum().item(), 1e-30)
+             for k, e in abs_err.items()}
+    kl_floor = K3_KL_ULPS * 2.0 ** -23 * terms["approx_kl"].numel() if on_policy else 0.0
+    m_ok = {k: e <= metric_rel or (k == "approx_kl" and abs_err[k] <= kl_floor)
+            for k, e in m_err.items()}
+    floor = (f" (on-policy: approx_kl's absolute {abs_err['approx_kl']:.3g}, "
+             f"floor {kl_floor:.3g})") if on_policy else ""
     phase("parity", f"{label}: per leaf max|err|/rel-L2 {' '.join(leaves)}; "
-          f"metric sums err " + ", ".join(f"{k} {e:.3g}" for k, e in m_err.items()))
-    check(worst_rel <= grad_rel and max(m_err.values()) <= metric_rel,
+          f"metric sums err " + ", ".join(f"{k} {e:.3g}" for k, e in m_err.items())
+          + floor)
+    check(worst_rel <= grad_rel and all(m_ok.values()),
           f"{label}: disagrees (rel-L2 {worst_rel:.3g} > {grad_rel} or metrics "
-          f"{max(m_err.values()):.3g} > {metric_rel})")
+          f"{m_err} > {metric_rel})")
     return worst_abs
 
 
@@ -794,7 +876,6 @@ def update_minibatch(dev, params, hidden, n_envs, n_steps, block, mb_blocks,
     from gym_futbol_tpu_torch import obs_size, ppo
     from gym_futbol_tpu_torch.models.policy import ActorCritic
 
-    fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = ActorCritic(params.players_per_team, obs_size(params), hidden,
                         device=dev)
@@ -803,19 +884,149 @@ def update_minibatch(dev, params, hidden, n_envs, n_steps, block, mb_blocks,
     runner, traj, last_v = ppo.collect_rollout_fused(runner, params, cfg)
     adv, ret = ppo.compute_gae(traj, last_v, cfg)
     ppo.update_epochs_fused(model, runner.optimizer, traj, adv, ret, gen, cfg)
+    return (model, cfg, *minibatch_args(model, traj, adv, ret, cfg, mb_blocks,
+                                        gen))
+
+
+def minibatch_args(model, traj, adv, ret, cfg, mb_blocks, gen):
+    """fused_minibatch_grad's (args, kw) for ``mb_blocks`` blocks of a
+    fused collect's buffer in permuted order, cut as update_epochs_fused
+    cuts it, on ``model``'s weights."""
+    import torch
+
+    from gym_futbol_tpu_torch import ppo
+
+    fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+    block = cfg.shuffle_block
     n_blocks = traj.obs.shape[1] // block
     dirs, acts, logp, value, adv, ret = (
         ppo._flatten_tm(x).reshape(n_blocks, block).contiguous()
         for x in (traj.dirs, traj.acts, traj.logp, traj.value, adv, ret))
-    order = torch.randperm(n_blocks, generator=gen, device=dev)
+    order = torch.randperm(n_blocks, generator=gen, device=traj.obs.device)
     idx = order[:mb_blocks].to(torch.int32).contiguous()
     adv_mb = adv[idx]
     adv_n = (adv_mb - adv_mb.mean()) / (adv_mb.std(correction=0) + 1e-8)
     args = (fc.flatten_actor_critic(model), traj.obs.contiguous(), dirs, acts,
             logp, value, ret, adv_n, idx)
-    kw = dict(n_torso=len(hidden), clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef,
-              ent_coef=cfg.ent_coef, block=block)
-    return model, cfg, args, kw
+    kw = dict(n_torso=len(model.hidden), clip_eps=cfg.clip_eps,
+              vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef, block=block)
+    return args, kw
+
+
+@contextlib.contextmanager
+def forced_update_plan(compute_dtype=None, smem_bytes=None):
+    """fused_minibatch_grad's route forced inside the block:
+    ``compute_dtype=torch.float32`` sends it to the CUDA-core chain (which
+    still computes in the caller's dtype); ``smem_bytes`` lowers the
+    shared memory update_plan allows a block (K3_STREAM_SMEM: W2 streamed
+    where it would stay resident). The main path never runs inside it."""
+    fu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
+    plan, limit = fu.update_plan, fu._SMEM_BYTES
+    if compute_dtype is not None:
+        fu.update_plan = lambda f_dim, widths, g5, m, mode: plan(
+            f_dim, widths, g5, m, compute_dtype)
+    if smem_bytes is not None:
+        fu._SMEM_BYTES = smem_bytes
+    try:
+        yield
+    finally:
+        fu.update_plan, fu._SMEM_BYTES = plan, limit
+
+
+def timed_iterations(runner, params, cfg, n_iters: int):
+    """One warm-up and ``n_iters`` timed train_iteration calls on
+    collect_rollout_fused and update_epochs_fused (bfloat16), every
+    launch count set to 0 just before. Returns (runner, the step
+    function, {ms, collect, update: ms per timed iteration by CUDA events;
+    history: their metrics; launches: every count after them; iters: the
+    iterations run, warm-up included})."""
+    import torch
+
+    from gym_futbol_tpu_torch import ops, ppo
+
+    spans = {"collect": [], "update": []}
+
+    def timed(fn, name):
+        def run(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    step = functools.partial(
+        ppo.train_iteration, collect_fn=timed(ppo.collect_rollout_fused, "collect"),
+        update_fn=timed(ppo.update_epochs_fused, "update"))
+    ops.reset_launch_counts()
+    runner, _ = step(runner, params, cfg)                        # warm-up
+    totals, history = [], []
+    for _ in range(n_iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        runner, metrics = step(runner, params, cfg)
+        end.record()
+        totals.append((start, end))
+        history.append(metrics)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+
+    def per_iter(pairs):
+        return sum(s.elapsed_time(e) for s, e in pairs) / n_iters
+
+    return runner, step, dict(
+        ms=per_iter(totals), collect=per_iter(spans["collect"][1:]),
+        update=per_iter(spans["update"][1:]), history=history,
+        launches=launches, iters=n_iters + 1)
+
+
+def k3_bound(weights, f_pad: int, m: int, mb_blocks: int):
+    """K3's least time on one minibatch of ``m`` samples (``mb_blocks``
+    blocks): the minibatch's obs columns, per-sample rows and idx read
+    once, weights read and gradients written once; the layer products'
+    multiply-adds on the tensor cores (bf16) or all in float32, the value
+    head's in float32. Returns (bf16 bound, f32 bound, bf16 multiply-adds
+    per sample, f32 ones)."""
+    n_torso = len(weights) // 2 - 2
+    dims = [weights[0].shape[0], *(weights[2 * i].shape[1] for i in range(n_torso))]
+    g5 = weights[-4].shape[1]
+    layer_macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    head_macs = dims[-1] * g5
+    # forward: layers + logits; backward: dh and dW of the logits head and
+    # of every layer but the first, whose dW alone is needed
+    bf16_macs = (layer_macs + head_macs) + 2 * head_macs + 2 * layer_macs - dims[0] * dims[1]
+    f32_macs = 3 * dims[-1]                       # value head: v, dh, dW
+    n_bytes = f_pad * m * 4 + 6 * m * 4 + mb_blocks * 4 + 2 * nbytes(*weights) + 16
+    return (bound(n_bytes, 2 * f32_macs * m, 2 * bf16_macs * m),
+            bound(n_bytes, 2 * (bf16_macs + f32_macs) * m), bf16_macs, f32_macs)
+
+
+def k3_cublas_ms(dev, f_pad: int, hidden, g5: int, m: int) -> float:
+    """The yardstick, never called by the port: cuBLAS (torch.matmul, bf16)
+    on K3's eight layer products of a two-layer torso at this minibatch
+    (forward: layer 1, layer 2, logits; backward: dh and dW of the logits
+    head and of layer 2, dW of layer 1), ms per set over 20."""
+    import torch
+
+    bf16 = torch.bfloat16
+    x, h1, h2 = (torch.randn(d, m, device=dev, dtype=bf16) for d in (f_pad, *hidden))
+    dl = torch.randn(g5, m, device=dev, dtype=bf16)
+    w1, w2, wl = (torch.randn(a, b, device=dev, dtype=bf16) for a, b in
+                  ((f_pad, hidden[0]), (hidden[0], hidden[1]), (hidden[1], g5)))
+
+    def products(i):
+        torch.matmul(w1.T, x)
+        torch.matmul(w2.T, h1)
+        torch.matmul(wl.T, h2)
+        torch.matmul(wl, dl)
+        torch.matmul(h2, dl.T)
+        torch.matmul(h1, h2.T)
+        torch.matmul(w2, h2)
+        torch.matmul(x, h1.T)
+
+    products(0)
+    return time_cuda(products, 20)
 
 
 def update_phases(dev, custom) -> dict:
@@ -834,23 +1045,27 @@ def update_phases(dev, custom) -> dict:
     p4, p6 = EnvParams(players_per_team=3), EnvParams(players_per_team=2)
     mb4 = 2 * B4 * T4 // K3_BLOCK // 4      # config 4's minibatch, in blocks
 
-    # 11: kernel vs plain version on real minibatches, both modes
+    # 11: kernel vs plain version on real minibatches, both modes; the
+    # float32 kernel also against autograd at config 4 and at 5v5 (256, 256)
+    p5 = EnvParams(players_per_team=5)
     cases = (
-        (f"config 4 3v3 {H4} block {K3_BLOCK}", p4, H4, B4, T4, K3_BLOCK, mb4),
-        ("custom (32, 16)", custom, (32, 16), B3, 8, K3_BLOCK, 16),
-        ("2v2 (128, 128) block 128", p6, (128, 128), 1024, 16, 128, 64),
-        ("5v5 (128, 128), G = 10", EnvParams(players_per_team=5), (128, 128),
-         1024, 16, K3_BLOCK, 8),
+        (f"config 4 3v3 {H4} block {K3_BLOCK}", p4, H4, B4, T4, K3_BLOCK, mb4, True),
+        ("custom (32, 16)", custom, (32, 16), B3, 8, K3_BLOCK, 16, False),
+        ("2v2 (128, 128) block 128", p6, (128, 128), 1024, 16, 128, 64, False),
+        ("5v5 (128, 128), G = 10", p5, (128, 128), 1024, 16, K3_BLOCK, 8, False),
+        ("5v5 (256, 256), G = 10", p5, H5, 1024, 16, K3_BLOCK, 8, True),
+        ("4v4 (256, 256), G = 8", EnvParams(players_per_team=4), H5, 1024, 16,
+         K3_BLOCK, 8, False),
     )
-    for n, (label, params, hidden, n_envs, n_steps, block, mb_blocks) in enumerate(
-            cases):
+    for n, (label, params, hidden, n_envs, n_steps, block, mb_blocks,
+            autograd) in enumerate(cases):
         model, cfg, args, kw = update_minibatch(
             dev, params, hidden, n_envs, n_steps, block, mb_blocks, 10 + n)
-        routes = "/".join(fu.update_plan(
-            args[1].shape[0], hidden, args[0][-4].shape[1], mb_blocks * block,
-            mode)["route"] for mode in (bf16, f32))
+        plans = [fu.update_plan(args[1].shape[0], hidden, args[0][-4].shape[1],
+                                mb_blocks * block, mode) for mode in (bf16, f32)]
+        routes = "/".join(pl["route"] for pl in plans)
         tag = (f"11 {label}, {mb_blocks} blocks ({mb_blocks * block} samples, "
-               f"bf16/f32 on {routes})")
+               f"bf16/f32 on {routes}, W2 {plans[0].get('w2_layout')})")
         got, terms = {}, {}
         for mode, tol in ((bf16, K3_BF16_REL), (f32, K3_F32_REL)):
             got[mode] = ops.fused_minibatch_grad(*args, **kw, compute_dtype=mode)
@@ -875,7 +1090,7 @@ def update_phases(dev, custom) -> dict:
         # at the main path's shape both clips must decide some gradients
         # (the small cases' returns stay inside the value clip)
         check(n > 0 or min(clip.values()) > 0, f"{tag}: a clip decides no sample")
-        if n == 0:
+        if autograd:
             # f32 kernel vs autograd of ppo_loss through the module
             obs_fm, dirs, acts, logp, value, ret, adv_n, idx = args[1:]
             m = idx.shape[0] * K3_BLOCK
@@ -891,52 +1106,25 @@ def update_phases(dev, custom) -> dict:
                 {k: lm[k].detach() * m for k in fu.METRICS})
             compare_update(got[f32], auto, terms[f32], f"{tag}, float32 vs "
                            f"autograd of ppo_loss", K3_AUTOGRAD_REL, K3_METRIC_REL)
+        if n == 0:
             k3_args, k3_kw = args, kw
 
     # 12: the main path: train_iteration at config 4 on both kernels
-    ops.reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     model = ActorCritic(p4.players_per_team, obs_size(p4), H4, device=dev)
     cfg = ppo.PPOConfig(rollout_steps=T4)
     runner = ppo.init_runner(gen, model, p4, cfg, B4)
-    spans = {"collect": [], "update": []}
-
-    def timed(fn, name):
-        def run(*a, **k):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            out = fn(*a, **k)
-            end.record()
-            spans[name].append((start, end))
-            return out
-        return run
-
-    step = functools.partial(
-        ppo.train_iteration, collect_fn=timed(ppo.collect_rollout_fused, "collect"),
-        update_fn=timed(ppo.update_epochs_fused, "update"))
     first = [p.detach().clone() for p in model.parameters()]
-    runner, _ = step(runner, p4, cfg)                            # warm-up
     n_iters, per_iter = 3, cfg.epochs * cfg.minibatches
-    check(ops.LAUNCHES["fused_minibatch_grad"] == per_iter,
-          f"12: {ops.LAUNCHES['fused_minibatch_grad']} update launches in one "
-          f"iteration, not {per_iter}")
-    totals, history = [], []
-    for i in range(n_iters):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        runner, metrics = step(runner, p4, cfg)
-        end.record()
-        totals.append((start, end))
-        history.append(metrics)
-        check(ops.LAUNCHES["fused_minibatch_grad"] == per_iter * (i + 2),
-              "12: update launches per iteration")
-    torch.cuda.synchronize()
-    launches = {k: ops.LAUNCHES[k] for k in ("fused_collect", "fused_minibatch_grad")}
-    check(launches["fused_collect"] == n_iters + 1,
-          f"12: the main path's collect launches: {launches}")
-    ms = sum(s.elapsed_time(e) for s, e in totals) / n_iters
-    ms_collect = sum(s.elapsed_time(e) for s, e in spans["collect"][1:]) / n_iters
-    ms_update = sum(s.elapsed_time(e) for s, e in spans["update"][1:]) / n_iters
+    runner, step, it = timed_iterations(runner, p4, cfg, n_iters)
+    launches = {k: it["launches"][k] for k in (
+        "fused_collect", "fused_minibatch_grad", "fused_minibatch_grad_chain")}
+    check(launches == {"fused_collect": n_iters + 1,
+                       "fused_minibatch_grad": per_iter * (n_iters + 1),
+                       "fused_minibatch_grad_chain": 0},
+          f"12: the main path's launches: {launches}")
+    ms, ms_collect, ms_update, history = (it[k] for k in (
+        "ms", "collect", "update", "history"))
     values = {k: [float(m[k]) for m in history] for k in history[0]}
     check(all(math.isfinite(v) for vs in values.values() for v in vs),
           f"12: non-finite metrics {values}")
@@ -977,65 +1165,39 @@ def update_phases(dev, custom) -> dict:
 
     ms_bf16 = time_cuda(k3(bf16), 10)
     ms_f32 = time_cuda(k3(f32), 3)
-    plan = fu.update_plan
-    fu.update_plan = lambda f_dim, widths, g5, m, mode: plan(f_dim, widths, g5, m, f32)
-    try:
+    with forced_update_plan(compute_dtype=f32):
         ms_chain_bf16 = time_cuda(k3(bf16), 3)
-    finally:
-        fu.update_plan = plan
+    # W2 streamed as at 4v4/5v5 (256, 256), here where resident fits: the
+    # same bits, timed between the resident runs
+    resident = k3(bf16)(0)
+    with forced_update_plan(smem_bytes=K3_STREAM_SMEM):
+        layout = fu.update_plan(k3_args[1].shape[0], H4, k3_args[0][-4].shape[1],
+                                mb4 * K3_BLOCK)["w2_layout"]
+        check(layout == "streamed", f"13: W2 {layout} under the lowered limit")
+        streamed = k3(bf16)(0)
+        ms_streamed = time_cuda(k3(bf16), 10)
+    check(all(torch.equal(a, b) for a, b in zip(resident[0], streamed[0]))
+          and all(torch.equal(resident[1][k], streamed[1][k]) for k in fu.METRICS),
+          "13: W2 streamed differs from resident at config 4")
     ms_bf16_again = time_cuda(k3(bf16), 10)
     plain_bf16 = time_cuda(lambda i: fu.fused_minibatch_grad_reference(
         *k3_args, **k3_kw, compute_dtype=bf16), 2)
     plain_f32 = time_cuda(lambda i: fu.fused_minibatch_grad_reference(
         *k3_args, **k3_kw, compute_dtype=f32), 2)
-    # bound: the minibatch's obs columns, per-sample rows and idx read
-    # once, weights read and gradients written once; the layer products'
-    # multiply-adds on the tensor cores, the value head's in float32
     w, obs_fm = k3_args[0], k3_args[1]
-    m, f = mb4 * K3_BLOCK, w[0].shape[0]
-    dims = [f, *H4]
-    g5 = w[-4].shape[1]
-    layer_macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-    head_macs = dims[-1] * g5
-    # forward: layers + logits; backward: dh and dW of the logits head and
-    # of every layer but the first, whose dW alone is needed
-    bf16_macs = (layer_macs + head_macs) + 2 * head_macs + 2 * layer_macs - dims[0] * dims[1]
-    f32_macs = 3 * dims[-1]                       # value head: v, dh, dW
-    bytes_k3 = (obs_fm.shape[0] * m * 4 + 6 * m * 4 + mb4 * 4
-                + 2 * nbytes(*w) + 16)
-    bound_bf16 = bound(bytes_k3, 2 * f32_macs * m, 2 * bf16_macs * m)
-    bound_f32 = bound(bytes_k3, 2 * (bf16_macs + f32_macs) * m)
+    m, g5 = mb4 * K3_BLOCK, w[-4].shape[1]
+    bound_bf16, bound_f32, bf16_macs, f32_macs = k3_bound(w, obs_fm.shape[0], m, mb4)
     phase("13 kernels", f"fused_minibatch_grad, config 4 minibatch of {m} "
-          f"samples: bfloat16 on the tensor cores {ms_bf16:.3f} ms (again after "
-          f"the chain: {ms_bf16_again:.3f} ms; bound {bound_bf16[0]:.4g} ms, "
-          f"{bound_bf16[1]}; {2 * bf16_macs * m / ms_bf16 / 1e9:.4g} TFLOP/s of "
-          f"bf16 products), the CUDA-core chain in bfloat16 {ms_chain_bf16:.3f} "
+          f"samples: bfloat16 on the tensor cores, W2 resident {ms_bf16:.3f} ms "
+          f"(again after the chain and the streamed layout: {ms_bf16_again:.3f} "
+          f"ms; bound {bound_bf16[0]:.4g} ms, {bound_bf16[1]}; "
+          f"{2 * bf16_macs * m / ms_bf16 / 1e9:.4g} TFLOP/s of bf16 products), W2 "
+          f"streamed {ms_streamed:.3f} ms (bitwise the resident one's output), "
+          f"the CUDA-core chain in bfloat16 {ms_chain_bf16:.3f} "
           f"ms, float32 {ms_f32:.3f} ms (bound {bound_f32[0]:.4g} ms); plain "
           f"version bfloat16 {plain_bf16:.3f} ms, float32 {plain_f32:.3f} ms; "
           f"{(bf16_macs + f32_macs)} multiply-adds per sample")
-    # yardstick, never called by the port: cuBLAS on the same eight bf16
-    # layer products (forward: layer 1, layer 2, logits; backward: dh and
-    # dW of the logits head and of layer 2, dW of layer 1)
-    hb = [torch.randn(d, m, device=dev, dtype=bf16) for d in (obs_fm.shape[0], *H4)]
-    dl = torch.randn(g5, m, device=dev, dtype=bf16)
-    wb = [torch.randn(a, b, device=dev, dtype=bf16) for a, b in
-          ((obs_fm.shape[0], H4[0]), (H4[0], H4[1]), (H4[1], g5))]
-
-    def products(i):
-        x, h1, h2 = hb
-        (w1, w2, wl) = wb
-        torch.matmul(w1.T, x)
-        torch.matmul(w2.T, h1)
-        torch.matmul(wl.T, h2)
-        torch.matmul(wl, dl)
-        torch.matmul(h2, dl.T)
-        torch.matmul(h1, h2.T)
-        torch.matmul(w2, h2)
-        torch.matmul(x, h1.T)
-
-    products(0)
-    ms_cublas = time_cuda(products, 20)
-    del hb, dl
+    ms_cublas = k3_cublas_ms(dev, obs_fm.shape[0], H4, g5, m)
     phase("13 kernels", f"yardstick: cuBLAS (torch.matmul, bf16) on the same "
           f"eight layer products at this minibatch: {ms_cublas:.3f} ms "
           f"({2 * bf16_macs * m / ms_cublas / 1e9:.4g} TFLOP/s), 20 iterations")
@@ -1695,10 +1857,12 @@ def normalized_phases(dev, main12) -> None:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
     launches = {k: ops.LAUNCHES[k] for k in (
-        "fused_collect", "fused_minibatch_grad", "fused_collect_f32")}
+        "fused_collect", "fused_minibatch_grad", "fused_collect_f32",
+        "fused_minibatch_grad_chain")}
     check(launches["fused_collect"] == n_iters + 1
           and launches["fused_minibatch_grad"] == 16 * (n_iters + 1)
-          and launches["fused_collect_f32"] == 0,
+          and launches["fused_collect_f32"] == 0
+          and launches["fused_minibatch_grad_chain"] == 0,
           f"17: the normalised main path's launches: {launches}")
     values = {k: [float(x[k]) for x in history] for k in history[0]}
     check(all(math.isfinite(v) for vs in values.values() for v in vs),
@@ -1961,14 +2125,16 @@ def distributed_phases(dev) -> None:
                     "fused_minibatch_grad", "fused_recurrent_collect")
     for r, o in enumerate(res):
         launches = {k: o["launches"].get(k, 0) for k in path_kernels}
+        others = {k: v for k, v in o["launches"].items()
+                  if k.endswith(("_f32", "_chain"))}
         phase("18 ranks", f"rank {r} of {world} on {o['device']} over "
               f"{o['backend']}: kernel launches in the main path {launches}; "
-              f"f32 routes {{{', '.join(f'{k}: {v}' for k, v in o['launches'].items() if k.endswith('_f32'))}}}")
+              f"f32 routes and K3's CUDA-core chain {others}")
         check(o["backend"] == "gloo", "18: two ranks on one card must take gloo")
         check(all(n > 0 for n in launches.values()),
               f"18: rank {r}'s main path skipped a kernel: {launches}")
-        check(all(v == 0 for k, v in o["launches"].items() if k.endswith("_f32")),
-              "18: an f32 route ran on the main path")
+        check(all(v == 0 for v in others.values()),
+              "18: an f32 route or K3's chain ran on the main path")
         check(o["replicated"] and o["k1_bitwise"] and o["streams_differ"]
               and o["k1b_finite"], f"18: rank {r}'s checks: {o}")
     check(res[0]["metrics"] == res[1]["metrics"], "18: the ranks' metrics differ")
@@ -2133,6 +2299,150 @@ class FutbolEnvRun:
               f"{Ball(env.state).position.tolist()}, team 0 "
               f"{Team(env.state, 0, env.params).positions.tolist()}; frame:\n{frame}")
 
+
+
+def config5_phase(dev, k2_plan: dict) -> dict:
+    """Phase 20: the bench config-5 PPO iteration (5v5, 65536 envs, T=64,
+    hidden (256, 256), 4 x 4 minibatches of 2^21 samples) through
+    train_iteration on the fused collect and K3 in bfloat16, first on the
+    tensor cores (W2 streamed through shared memory), then with K3's route
+    forced to the CUDA-core chain (the route this shape took before), each
+    split into collect, update and the rest; then K3 alone on one config-5
+    minibatch of a fresh buffer against its plain version (on-policy, and
+    after one update on the buffer), timed beside the chain, the plain
+    version, its bound and cuBLAS on the same products. ``k2_plan``: the
+    collect's layout phase 7 held against its plain version, which this
+    phase's collect must take. Returns K3's config-5 fields of the
+    kernels line."""
+    import torch
+
+    from gym_futbol_tpu_torch import EnvParams, obs_size, ops, ppo
+    from gym_futbol_tpu_torch.models.policy import ActorCritic
+
+    fu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
+    fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+    f32 = torch.float32
+    p5 = EnvParams(players_per_team=5)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    model = ActorCritic(p5.players_per_team, obs_size(p5), H5, device=dev)
+    cfg = ppo.PPOConfig(rollout_steps=T5)
+    runner = ppo.init_runner(gen, model, p5, cfg, B5)
+    m5 = 2 * B5 * T5 // cfg.minibatches
+    mb_blocks = m5 // cfg.shuffle_block
+    f_pad, g5 = -(-obs_size(p5) // 8) * 8, 10 * p5.players_per_team
+    plan = fu.update_plan(f_pad, H5, g5, m5)
+    check(plan["route"] == "tensor_cores" and plan["w2_layout"] == "streamed",
+          f"20: config 5's K3 plan {plan['route']} W2 {plan.get('w2_layout')}")
+    phase("20 plan", f"update_plan at config 5 (F_pad {f_pad}, G*5 {g5}, {m5} "
+          f"samples): {plan['route']}, W2 {plan['w2_layout']} (ring "
+          f"{plan['w2_ring_bytes']} bytes), forward block {plan['smem_fwd']} "
+          f"bytes, backward {plan['smem_bwd']}, {plan['fwd_blocks']} / "
+          f"{plan['bwd_blocks']} blocks")
+    per_iter = cfg.epochs * cfg.minibatches
+    runs = {}
+    t0 = time.perf_counter()
+    runner, _, runs["tensor cores"] = timed_iterations(runner, p5, cfg, N5_ITERS)
+    with forced_update_plan(compute_dtype=f32):
+        runner, _, runs["CUDA-core chain"] = timed_iterations(runner, p5, cfg,
+                                                               N5_ITERS)
+    for name, it in runs.items():
+        n, tc = it["iters"], name == "tensor cores"
+        launches = {k: it["launches"][k] for k in (
+            "fused_collect", "fused_collect_f32", "fused_minibatch_grad",
+            "fused_minibatch_grad_chain")}
+        check(launches == {"fused_collect": n, "fused_collect_f32": 0,
+                           "fused_minibatch_grad": per_iter * n if tc else 0,
+                           "fused_minibatch_grad_chain": 0 if tc else per_iter * n},
+              f"20: the {name} iterations' launches: {launches}")
+        values = {k: [float(x[k]) for x in it["history"]] for k in it["history"][0]}
+        check(all(math.isfinite(v) for vs in values.values() for v in vs),
+              f"20: non-finite metrics {values}")
+        phase("20 main path", f"train_iteration, K3 on the {name} (bfloat16), "
+              f"5v5 B={B5} T={T5} hidden {H5}, {cfg.epochs} x {cfg.minibatches} "
+              f"minibatches of {m5} samples: {it['ms']:.3f} ms/iteration, "
+              f"{B5 * T5 / it['ms'] * 1e3:.6g} env-steps/s ({N5_ITERS} iterations "
+              f"after 1 warm-up); collect {it['collect']:.3f} ms, update "
+              f"{it['update']:.3f} ms, GAE and the rest "
+              f"{it['ms'] - it['collect'] - it['update']:.3f} ms; launches "
+              f"{launches}; loss " + " ".join(f"{v:.5g}" for v in values["loss"]))
+    k3_launches = runs["tensor cores"]["launches"]["fused_minibatch_grad"]
+
+    # K3 alone on one minibatch of a fresh buffer: on-policy, as the main
+    # path's first minibatch of each iteration, then on the weights after
+    # one update on it (as update_minibatch: so that the ratio and the
+    # value move past their clips, and the approx_kl terms past float32
+    # noise)
+    plans = []
+    with recorded(fc, "tc_plan", plans):
+        runner, traj, last_v = ppo.collect_rollout_fused(runner, p5, cfg)
+    check(plans == [k2_plan], f"20: the collect's layout {plans} is not the one "
+          f"phase 7 held against its plain version, {k2_plan}")
+    adv, ret = ppo.compute_gae(traj, last_v, cfg)
+    args, kw = minibatch_args(model, traj, adv, ret, cfg, mb_blocks, gen)
+    got = ops.fused_minibatch_grad(*args, **kw)
+    plain_grads, terms = fu.fused_minibatch_grad_reference(*args, **kw,
+                                                           per_sample=True)
+    err_on = compare_update(got, (plain_grads, {k: terms[k].sum() for k in fu.METRICS}),
+                            terms, f"20 K3 config 5, {m5} samples on-policy, bf16 "
+                            f"on the tensor cores (W2 streamed) vs plain",
+                            K3_BF16_REL, K3_METRIC_REL, on_policy=True)
+    del got, plain_grads, terms, args
+    opt = runner.optimizer
+    ppo.update_epochs_fused(model, opt, traj, adv, ret, gen, cfg)
+    args, kw = minibatch_args(model, traj, adv, ret, cfg, mb_blocks, gen)
+    traj_box = (traj, adv, ret)              # for the update's profile
+    del runner, traj, last_v, adv, ret
+
+    def k3(i):
+        return ops.fused_minibatch_grad(*args, **kw)
+
+    got = k3(0)
+    plain_grads, terms = fu.fused_minibatch_grad_reference(*args, **kw,
+                                                           per_sample=True)
+    err = compare_update(got, (plain_grads, {k: terms[k].sum() for k in fu.METRICS}),
+                         terms, f"20 K3 config 5, {m5} samples, bf16 on the tensor "
+                         f"cores (W2 streamed) vs plain", K3_BF16_REL, K3_METRIC_REL)
+    clip = {k: terms[k].mean().item() for k in ("pg_clip", "v_clip")}
+    del plain_grads, terms
+    again = k3(0)
+    check(all(torch.equal(a, b) for a, b in zip(got[0], again[0])),
+          "20: two calls differ")
+    ms_tc = time_cuda(k3, 10)
+    with forced_update_plan(compute_dtype=f32):
+        ms_chain = time_cuda(k3, 3)
+    ms_tc_again = time_cuda(k3, 10)
+    plain_ms = time_cuda(lambda i: fu.fused_minibatch_grad_reference(*args, **kw), 2)
+    bound_bf16, _, bf16_macs, _ = k3_bound(args[0], f_pad, m5, mb_blocks)
+    ms_cublas = k3_cublas_ms(dev, f_pad, H5, g5, m5)
+    phase("20 kernels", f"fused_minibatch_grad, config 5 minibatch of {m5} "
+          f"samples (share whose gradient the clip zeroes: surrogate "
+          f"{clip['pg_clip']:.4g}, value {clip['v_clip']:.4g}): bfloat16 on the "
+          f"tensor cores, W2 streamed {ms_tc:.3f} ms (again after the chain: "
+          f"{ms_tc_again:.3f}; {2 * bf16_macs * m5 / ms_tc / 1e9:.4g} TFLOP/s of "
+          f"bf16 products), the CUDA-core chain in bfloat16 {ms_chain:.3f} ms, "
+          f"plain version bfloat16 {plain_ms:.3f} ms; bound {bound_bf16[0]:.4g} "
+          f"ms ({bound_bf16[1]}, {bf16_macs} bf16 multiply-adds per sample); "
+          f"cuBLAS (torch.matmul, bf16) on the same eight layer products "
+          f"{ms_cublas:.3f} ms")
+    # the first profile taken after phase 18 recorded no device events
+    # once (of one launch, then printed); the profile after it did
+    device_profile(lambda: k3(0))
+    busy, wall_ms, rows = device_profile(lambda: ppo.update_epochs_fused(
+        model, opt, *traj_box, gen, cfg))
+    phase("20 profile", f"update_epochs_fused, one config-5 update (16 launches): "
+          f"{wall_ms:.3f} ms wall, device busy share {busy:.4f}; device ms by "
+          f"kernel: " + "; ".join(f"{name} {n}x {ms:.3f}" for name, n, ms in rows[:8]))
+    phase("20 time", f"phase 20 in {time.perf_counter() - t0:.1f} s")
+    return {"config5_launches": k3_launches, "config5_max_abs_err": max(err, err_on),
+            "config5_ms": ms_tc, "config5_chain_ms": ms_chain,
+            "config5_plain_ms": plain_ms, "config5_bound_ms": bound_bf16[0],
+            "config5_bound_by": bound_bf16[1], "config5_cublas_ms": ms_cublas,
+            "config5_iteration_ms": runs["tensor cores"]["ms"],
+            "config5_chain_iteration_ms": runs["CUDA-core chain"]["ms"],
+            "config5_unit": f"ms per launch, bfloat16, one config-5 minibatch of "
+                            f"{m5} samples (5v5, hidden {H5}, W2 streamed); "
+                            f"launches: the {N5_ITERS + 1} tensor-core "
+                            f"iterations of phase 20"}
 
 
 def device_profile(fn):
@@ -2511,6 +2821,10 @@ def main() -> int:
     recurrent_record = recurrent_phases(dev, custom, shares)
     normalized_phases(dev, main12)
     distributed_phases(dev)
+    update_record.update(config5_phase(dev, policy_record[0]["config5_plan"]))
+    phase("time", "seconds per phase (each interval between two lines charged "
+          "to the phase of the later): " + json.dumps(
+              {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
 
     per_step = f"ms per step of the {B3}-env 2v2 batch"
     record = {"kernels": [

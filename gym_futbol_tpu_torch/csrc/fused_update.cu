@@ -20,13 +20,22 @@
 // futbol_fused_update_tc). What bounds it: 2 * 235,776 bf16 operations
 // per sample at bench config 4 (3v3, hidden (256, 256)), 4.9e11 per
 // 2^20-sample minibatch, 0.50 ms at the tensor cores' peak; the bytes
-// that must move are ~160 MB. The design keeps the activations on chip:
+// that must move are ~160 MB. At bench config 5 (5v5, the same torso):
+// 2 * 258,560 per sample, 1.10 ms per 2^21-sample minibatch; streaming W2
+// adds 128 KB of L2 reads per 64-sample tile (~4.3 GB a minibatch). The
+// design keeps the activations on chip:
 // - round_obs_kernel: the minibatch's obs columns, gathered through the
 //   block indices and rounded to bf16 (xb [f1p][M]), for both kernels.
-// - tc_forward_kernel, one block of 16 warps per chunk, every weight
-//   resident in shared memory as bf16 (W1, W2, the logits head;
-//   zero-padded so that the torso widths are multiples of 64 and G*5 of
-//   16, which is exact).
+// - tc_forward_kernel, one block of 16 warps per chunk, the weights in
+//   shared memory as bf16 (W1, W2, the logits head; zero-padded so that
+//   the torso widths are multiples of 64 and G*5 of 16, which is exact).
+//   W2 is resident where the whole block fits in 232,448 bytes (3v3 at
+//   (256, 256)); where it does not (4v4 and 5v5 at (256, 256): W2 alone
+//   is 128 KB) it is streamed: 64-row slabs of W2 pass through a ring of
+//   two slots, each tile's layer 2 running slab by slab in the resident
+//   order of its k steps (the same bits). A tile's first two slabs are
+//   copied during the tile before; slab j + 2 is copied while slab j + 1
+//   is multiplied. The slabs come from L2 for every tile.
 //   Per tile of 64 samples (a tile never crosses a shuffle block; its xb
 //   columns and per-sample rows arrive by cp.async during the tile
 //   before): layer 1, tanh, layer 2, tanh (the last layer's float32 h
@@ -679,6 +688,9 @@ constexpr int kFwdThreads = 512;  // 16 warps per forward block
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kTcThreads = 256;   // 8 warps per backward block
 constexpr int kSlab = 64;         // first-layer units per backward block
+// The forward's W2: none (one-layer torsos), resident in shared memory,
+// or streamed through a ring of two slabs of kSlab rows [kSlab][h2p].
+constexpr int kNoW2 = 0, kW2Resident = 1, kW2Streamed = 2;
 
 using bf16 = __nv_bfloat16;
 
@@ -1039,12 +1051,14 @@ __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m *
 
 // Shared memory of the forward block, in bytes (the carve-up at its top).
 __host__ __device__ inline size_t fwd_smem(int f1p, int h1p, int h2p, int hp,
-                                           int g, bool two) {
+                                           int g, int w2) {
   const int hmax = h1p > h2p ? h1p : h2p;
   const int g5p = round_up(g * kChoices, 16);
-  const size_t halves = static_cast<size_t>(f1p) * h1p + (two ? h1p * h2p : 0) +
+  const int w2_halves = w2 == kW2Resident ? h1p * h2p
+                      : w2 == kW2Streamed ? 2 * kSlab * h2p : 0;
+  const size_t halves = static_cast<size_t>(f1p) * h1p + w2_halves +
                         hp * (g5p + 8) + f1p * kTS + hmax * kTS + g5p * kTS;
-  const size_t floats = static_cast<size_t>(g5p) * kTS + h1p + (two ? h2p : 0) +
+  const size_t floats = static_cast<size_t>(g5p) * kTS + h1p + (w2 ? h2p : 0) +
                         g5p + hp + kFwdWarps * kTS + 8 * kTS + 2 * g * kTS;
   return halves * 2 + floats * 4;
 }
@@ -1094,15 +1108,17 @@ __device__ __forceinline__ int group_logits(float (&r)[kChoices], const float* s
 }
 
 // Forward, loss and the heads' backward for the samples of one chunk
-// (blockIdx.x), kTS at a time, every weight resident in shared memory.
-// Sixteen warps of at most 128 registers: four warpgroups, warpgroup q
-// making rows 64 q .. 64 q + 63 of each torso layer (wgmma), so warp w
-// holds rows 16 w .. 16 w + 15 for all kTS samples and keeps the last
-// layer's float32 activations in its registers from the forward to tanh'
-// (dh = Wl dlogits takes the same fragment layout on mma.sync). Writes the
-// bf16 dz of the last layer and the chunk's partial sums (FwdLayout).
-template <int G, bool kTwo>
+// (blockIdx.x), kTS at a time, the weights in shared memory (W2 resident
+// or streamed, kW2). Sixteen warps of at most 128 registers: four
+// warpgroups, warpgroup q making rows 64 q .. 64 q + 63 of each torso
+// layer (wgmma), so warp w holds rows 16 w .. 16 w + 15 for all kTS
+// samples and keeps the last layer's float32 activations in its registers
+// from the forward to tanh' (dh = Wl dlogits takes the same fragment
+// layout on mma.sync). Writes the bf16 dz of the last layer and the
+// chunk's partial sums (FwdLayout).
+template <int G, int kW2>
 __global__ void __launch_bounds__(kFwdThreads, 1) tc_forward_kernel(TcArgs a) {
+  constexpr bool kTwo = kW2 != kNoW2;
   constexpr int G5 = G * kChoices;
   constexpr int G5P = (G5 + 15) / 16 * 16;
   constexpr int NT = G5P / 8;        // n8 tiles of the heads' dW
@@ -1113,11 +1129,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) tc_forward_kernel(TcArgs a) {
   bf16* hp_ptr = reinterpret_cast<bf16*>(smem_raw);
   // W1 and W2 as column blocks [f1p][64] and [h1p][64], MN-major for wgmma
   // (every tile here starts on a 1024-byte boundary: each size is a
-  // multiple)
+  // multiple). Streamed, W2's ring: two slots of h2p / 64 blocks
+  // [kSlab][64], slot s holding slabs s, s + 2, .. of each tile.
   bf16* const w1s = hp_ptr;
   hp_ptr += f1p * h1p;
   bf16* const w2s = hp_ptr;
-  if (kTwo) hp_ptr += h1p * h2p;
+  if (kW2 == kW2Resident) hp_ptr += h1p * h2p;
+  if (kW2 == kW2Streamed) hp_ptr += 2 * kSlab * h2p;
   const Tile tWl{hp_ptr, G5P + 8, false};
   hp_ptr += hp * (G5P + 8);
   const Tile tX{hp_ptr, kTS, true};
@@ -1150,7 +1168,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) tc_forward_kernel(TcArgs a) {
   if ((smem_addr(smem_raw) & 1023u) != 0) __trap();   // wgmma_desc
   for (int q = 0; q < h1p / 64; ++q)
     copy_in(Tile{w1s + q * f1p * 64, 64, true}, a.w1 + q * 64, h1p, f1p, 64);
-  if (kTwo)
+  if (kW2 == kW2Resident)
     for (int q = 0; q < h2p / 64; ++q)
       copy_in(Tile{w2s + q * h1p * 64, 64, true}, a.w2 + q * 64, h2p, h1p, 64);
   fence_async_shared();
@@ -1218,8 +1236,30 @@ __global__ void __launch_bounds__(kFwdThreads, 1) tc_forward_kernel(TcArgs a) {
     }
     cp_async_commit();
   };
+  // Streamed W2: slab j (rows kSlab j .. + kSlab - 1, every column) into
+  // slot j % 2 as h2p / 64 blocks [kSlab][64], 16 bytes a thread.
+  const int n_w2 = h1p / kSlab;
+  auto prefetch_w2 = [&](int j) {
+    bf16* const slot = w2s + (j & 1) * kSlab * h2p;
+    const bf16* const src = a.w2 + static_cast<long long>(j) * kSlab * h2p;
+    const int groups = h2p / 8;
+    for (int e = tid; e < kSlab * groups; e += kFwdThreads) {
+      const int r = e / groups, c = (e % groups) * 8;
+      const Tile t{slot + (c >> 6) * kSlab * 64, 64, true};
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_addr(t.p + toff(t, r, c & 63))),
+                   "l"(src + r * h2p + c)
+                   : "memory");
+    }
+    cp_async_commit();
+  };
+  auto prefetch_w2_first = [&]() {   // a tile's slabs 0 and 1
+    prefetch_w2(0);
+    if (n_w2 > 1) prefetch_w2(1);
+  };
   prefetch_obs(s_begin);
   prefetch_rows(s_begin);
+  if (kW2 == kW2Streamed) prefetch_w2_first();
   float h[1][8][4];
   for (int s0 = s_begin; s0 < s_end; s0 += kTS) {
     const bool more = s0 + kTS < s_end;
@@ -1244,8 +1284,26 @@ __global__ void __launch_bounds__(kFwdThreads, 1) tc_forward_kernel(TcArgs a) {
       fence_async_shared();
       __syncthreads();
       zero_acc(h);
-      if (mvl[0]) warpgroup_mma(h[0], w2s + (warp >> 2) * h1p * 64, tH.p, h1p);
-      __syncthreads();   // every warp is done reading h1
+      if (kW2 == kW2Resident) {
+        if (mvl[0]) warpgroup_mma(h[0], w2s + (warp >> 2) * h1p * 64, tH.p, h1p);
+      } else {
+        // slab by slab over k, in the resident order of the k steps:
+        // slabs 0 and 1 landed with the tile's inputs; slab j + 1 is
+        // copied into the slot of slab j - 1 while slab j is multiplied
+        for (int j = 0; j < n_w2; ++j) {
+          if (j > 0) {
+            cp_async_wait<0>();
+            fence_async_shared();   // slab j, for wgmma
+            __syncthreads();   // slab j has landed; every warp is done with j - 1
+            if (j + 1 < n_w2) prefetch_w2(j + 1);
+          }
+          if (mvl[0])
+            warpgroup_mma(h[0], w2s + (j & 1) * kSlab * h2p + (warp >> 2) * kSlab * 64,
+                          tH.p + j * kSlab * kTS, kSlab);
+        }
+      }
+      __syncthreads();   // every warp is done reading h1 (and W2's ring)
+      if (kW2 == kW2Streamed && more) prefetch_w2_first();
     }
     float vp[8][2];
 #pragma unroll
@@ -1648,12 +1706,12 @@ __global__ void __launch_bounds__(kTcThreads, 1) tc_backward_kernel(TcArgs a) {
   }
 }
 
-template <int G, bool kTwo>
+template <int G, int kW2>
 cudaError_t launch_tc(const TcArgs& a, int n_chunks, cudaStream_t stream) {
-  const bool two = kTwo;
-  const size_t smem_f = fwd_smem(a.f1p, a.h1p, a.h2p, a.hp, G, two);
-  const size_t smem_b = bwd_smem(a.f1p, a.h2p, two);
-  cudaError_t err = cudaFuncSetAttribute(tc_forward_kernel<G, kTwo>,
+  constexpr bool kTwo = kW2 != kNoW2;
+  const size_t smem_f = fwd_smem(a.f1p, a.h1p, a.h2p, a.hp, G, kW2);
+  const size_t smem_b = bwd_smem(a.f1p, a.h2p, kTwo);
+  cudaError_t err = cudaFuncSetAttribute(tc_forward_kernel<G, kW2>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_f));
   if (err != cudaSuccess) return err;
@@ -1666,21 +1724,21 @@ cudaError_t launch_tc(const TcArgs& a, int n_chunks, cudaStream_t stream) {
       a.obs, a.n_cols, a.f_pad, a.f1p, a.idx, a.block, a.M, a.xb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tc_forward_kernel<G, kTwo><<<n_chunks, kFwdThreads, smem_f, stream>>>(a);
+  tc_forward_kernel<G, kW2><<<n_chunks, kFwdThreads, smem_f, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tc_backward_kernel<kTwo><<<n_chunks * (a.h1p / kSlab), kTcThreads, smem_b, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool kTwo>
+template <int kW2>
 cudaError_t launch_tc_any(int G, const TcArgs& a, int n_chunks, cudaStream_t stream) {
   switch (G) {
-    case 2: return launch_tc<2, kTwo>(a, n_chunks, stream);
-    case 4: return launch_tc<4, kTwo>(a, n_chunks, stream);
-    case 6: return launch_tc<6, kTwo>(a, n_chunks, stream);
-    case 8: return launch_tc<8, kTwo>(a, n_chunks, stream);
-    case 10: return launch_tc<10, kTwo>(a, n_chunks, stream);
+    case 2: return launch_tc<2, kW2>(a, n_chunks, stream);
+    case 4: return launch_tc<4, kW2>(a, n_chunks, stream);
+    case 6: return launch_tc<6, kW2>(a, n_chunks, stream);
+    case 8: return launch_tc<8, kW2>(a, n_chunks, stream);
+    case 10: return launch_tc<10, kW2>(a, n_chunks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1717,12 +1775,14 @@ int futbol_fused_update(const float* const* w, float* const* grads,
 // The bf16 path on the tensor cores for torsos of one or two layers.
 // Weights arrive rounded and zero-padded (w1 [f1p][h1p], w2 [h1p][h2p],
 // wl [hp][g5p] bf16; b1, b2, bl, wv float32 padded alike), h2p = 0 for one
-// layer. dz is bf16 [hp][M]; part_fwd / part_bwd hold one FwdLayout /
-// BwdLayout per chunk, summed in a fixed order into out_fwd / out_bwd.
+// layer; w2_stream 1 streams W2 through the forward's ring, 0 keeps it
+// resident (two-layer torsos). dz is bf16 [hp][M]; part_fwd / part_bwd
+// hold one FwdLayout / BwdLayout per chunk, summed in a fixed order into
+// out_fwd / out_bwd.
 int futbol_fused_update_tc(const void* w1, const void* w2, const void* wl,
                            const float* b1, const float* b2, const float* bl,
                            const float* wv, const float* bv, int f_pad, int f1p,
-                           int h1p, int h2p, int g, const float* obs,
+                           int h1p, int h2p, int g, int w2_stream, const float* obs,
                            long long n_cols, const int* idx, int mb_blocks,
                            int block, const int* dirs, const int* acts,
                            const float* logp, const float* value,
@@ -1735,7 +1795,7 @@ int futbol_fused_update_tc(const void* w1, const void* w2, const void* wl,
   const int g5p = round_up(g * kChoices, 16);
   if (block % 128 != 0 || chunk % kTS != 0 || f1p % 16 != 0 || f1p > 64 ||
       f_pad > f1p || h1p % kSlab != 0 || h1p < kSlab || h1p > 256 ||
-      h2p % kSlab != 0 || h2p > 256)
+      h2p % kSlab != 0 || h2p > 256 || (w2_stream && !two))
     return static_cast<int>(cudaErrorInvalidValue);
   const int M = mb_blocks * block;
   const int n_chunks = (M + chunk - 1) / chunk;
@@ -1778,8 +1838,9 @@ int futbol_fused_update_tc(const void* w1, const void* w2, const void* wl,
   a.e_fwd = lf.size;
   a.part_bwd = part_bwd;
   a.e_bwd = lb.size;
-  cudaError_t err = two ? launch_tc_any<true>(g, a, n_chunks, stream)
-                        : launch_tc_any<false>(g, a, n_chunks, stream);
+  cudaError_t err = !two        ? launch_tc_any<kNoW2>(g, a, n_chunks, stream)
+                    : w2_stream ? launch_tc_any<kW2Streamed>(g, a, n_chunks, stream)
+                                : launch_tc_any<kW2Resident>(g, a, n_chunks, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_reduce(part_fwd, n_chunks, lf.size, lf.size, out_fwd, stream);
   launch_reduce(part_bwd, n_chunks, lb.size, lb.size, out_bwd, stream);

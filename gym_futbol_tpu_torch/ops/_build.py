@@ -246,6 +246,7 @@ def load() -> ctypes.CDLL:
         p, p, p,              # bf16 W1, W2, Wl, padded
         p, p, p, p, p,        # float32 b1, b2, bl, wv (padded), bv
         i, i, i, i, i,        # F_pad, F1 padded, H1 padded, H2 padded or 0, G
+        i,                    # W2 streamed (1) or resident (0)
         p, ctypes.c_longlong,  # obs [F_pad, N], N
         p, i, i,              # block indices, mb_blocks, block
         p, p, p, p, p, p,     # dirs, acts, logp, value, ret, adv_n

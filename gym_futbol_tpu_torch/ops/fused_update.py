@@ -18,9 +18,11 @@ scale is inside the gradients and the four metrics are sums. On a CUDA
 tensor :func:`fused_minibatch_grad` runs the kernels of
 ``csrc/fused_update.cu`` on the route :func:`update_plan` names: in
 bfloat16 the tensor-core kernels (torsos of one or two layers up to
-:data:`TC_MAX_WIDTH` wide), otherwise the chain of CUDA-core kernels; on
-a CPU tensor it runs the plain version
-:func:`fused_minibatch_grad_reference`.
+:data:`TC_MAX_WIDTH` wide, W2 resident in shared memory or streamed
+through it), otherwise the chain of CUDA-core kernels; on a CPU tensor
+it runs the plain version :func:`fused_minibatch_grad_reference`.
+``LAUNCHES`` counts the tensor-core route under ``fused_minibatch_grad``,
+the chain under ``fused_minibatch_grad_chain``.
 
 Precision, as the JAX kernel rounds: with ``compute_dtype`` bfloat16,
 every operand of a layer product (the obs, each activation, each weight
@@ -56,11 +58,13 @@ _LOSS_THREADS = 256
 _GROUPS = (2, 4, 6, 8, 10)   # action groups the loss kernel is built for
 # Shared memory a block may use (H100): the CUDA-core loss kernel keeps
 # both heads' weights there, [H, G*5 + 1] float32; the tensor-core forward
-# every weight in bf16.
+# its weights in bf16 (W2 resident or, where that does not fit, a ring of
+# two slabs).
 _SMEM_BYTES = 232448
 # The tensor-core kernels: samples per tile (and the multiple the torso
-# widths are padded to), first-layer units per backward block, the widest
-# torso layer they take, warps per forward block.
+# widths are padded to), first-layer units per backward block (and W2's
+# rows per streamed slab), the widest torso layer they take, warps per
+# forward block.
 TC_TILE = 64
 TC_SLAB = 64
 TC_MAX_WIDTH = 256
@@ -278,14 +282,18 @@ def update_plan(f_dim: int, widths, g5: int, m: int,
     """How :func:`fused_minibatch_grad` runs a minibatch of ``m`` samples
     with ``f_dim`` obs rows, torso ``widths`` and a ``g5``-wide logits
     head, without a card: the route and, for the tensor cores, the padded
-    sizes, shared memory, grids and buffer sizes of ``csrc/fused_update.cu``
-    (``fwd_smem``, ``bwd_smem``, ``FwdLayout``, ``BwdLayout``).
+    sizes, W2's layout, shared memory, grids and buffer sizes of
+    ``csrc/fused_update.cu`` (``fwd_smem``, ``bwd_smem``, ``FwdLayout``,
+    ``BwdLayout``).
 
     bfloat16 with one or two torso layers of at most :data:`TC_MAX_WIDTH`
     units whose forward block fits in shared memory takes the tensor-core
-    kernels ("tensor_cores"); float32, and bfloat16 beyond those limits,
-    the chain of CUDA-core kernels ("cuda_cores"). Raises ValueError for a
-    minibatch neither takes."""
+    kernels ("tensor_cores"): a two-layer torso's W2 ``"resident"`` in
+    the forward block where the whole block fits, else ``"streamed"``
+    through a ring of two :data:`TC_SLAB`-row slabs (``w2_ring_bytes``);
+    ``w2_layout`` is None for one layer. Float32, and bfloat16 beyond
+    those limits, take the chain of CUDA-core kernels ("cuda_cores").
+    Raises ValueError for a minibatch neither route takes."""
     widths = [int(h) for h in widths]
     g = g5 // N_CHOICES
     if g5 % N_CHOICES or g not in _GROUPS:
@@ -301,14 +309,22 @@ def update_plan(f_dim: int, widths, g5: int, m: int,
     hp = padded[-1]
     two = len(widths) == 2
     h1p, h2p = padded[0], padded[1] if two else 0
-    halves = (f1p * h1p + (h1p * h2p if two else 0) + hp * (g5p + 8)
-              + f1p * TC_TILE + max(h1p, h2p) * TC_TILE + g5p * TC_TILE)
-    floats = (g5p * TC_TILE + h1p + h2p + g5p + hp + TC_FWD_WARPS * TC_TILE
-              + 8 * TC_TILE + 2 * g * TC_TILE)
-    smem_fwd = 2 * halves + 4 * floats
+    # W2's share of the forward block, in bf16 halves: resident, or a ring
+    # of two slabs
+    w2_halves = {None: 0, "resident": h1p * h2p, "streamed": 2 * TC_SLAB * h2p}
+
+    def smem_fwd(layout):
+        halves = (f1p * h1p + w2_halves[layout] + hp * (g5p + 8) + f1p * TC_TILE
+                  + max(h1p, h2p) * TC_TILE + g5p * TC_TILE)
+        floats = (g5p * TC_TILE + h1p + h2p + g5p + hp + TC_FWD_WARPS * TC_TILE
+                  + 8 * TC_TILE + 2 * g * TC_TILE)
+        return 2 * halves + 4 * floats
+
+    layouts = ("resident", "streamed") if two else (None,)   # resident first
+    fits = [(lay, smem_fwd(lay)) for lay in layouts if smem_fwd(lay) <= _SMEM_BYTES]
     if (compute_dtype == torch.bfloat16 and len(widths) <= 2
-            and max(widths) <= TC_MAX_WIDTH and f1p <= 64
-            and smem_fwd <= _SMEM_BYTES):
+            and max(widths) <= TC_MAX_WIDTH and f1p <= 64 and fits):
+        layout, smem = fits[0]
         e_fwd = hp * g5p + g5p + 2 * hp + 8
         e_bwd = f1p * h1p + (h1p + h1p * h2p if two else 0)
         # two (obs, dz) buffers; two-layer torsos: W2's and W1's slab, h1
@@ -319,7 +335,9 @@ def update_plan(f_dim: int, widths, g5: int, m: int,
         ) + 4 * (TC_SLAB + 8 * 16)
         plan.update(
             route="tensor_cores", f1p=f1p, h1p=h1p, h2p=h2p, hp=hp, g5p=g5p,
-            smem_fwd=smem_fwd, smem_bwd=smem_bwd,
+            w2_layout=layout,
+            w2_ring_bytes=2 * w2_halves["streamed"] if layout == "streamed" else 0,
+            smem_fwd=smem, smem_bwd=smem_bwd,
             fwd_blocks=n_chunks, bwd_blocks=n_chunks * (h1p // TC_SLAB),
             tiles_per_chunk=CHUNK // TC_TILE, e_fwd=e_fwd, e_bwd=e_bwd,
             partial_floats=n_chunks * (e_fwd + e_bwd), dz_shape=(hp, m),
@@ -398,7 +416,8 @@ def _run_tensor_cores(weights, obs_fm, rows, adv_n, idx, n_torso, block,
         w1.data_ptr(), w2.data_ptr(), wl_p.data_ptr(), b1.data_ptr(),
         b2.data_ptr(), bl_p.data_ptr(), wv_p.data_ptr(), bv.data_ptr(),
         obs_fm.shape[0], f1p, h1p, h2p, wl.shape[1] // N_CHOICES,
-        obs_fm.data_ptr(), obs_fm.shape[1], idx.data_ptr(), idx.shape[0], block,
+        int(plan["w2_layout"] == "streamed"), obs_fm.data_ptr(),
+        obs_fm.shape[1], idx.data_ptr(), idx.shape[0], block,
         *(r.data_ptr() for r in rows), adv_n.data_ptr(), *coefs,
         dz.data_ptr(), xb.data_ptr(), part_fwd.data_ptr(), part_bwd.data_ptr(),
         CHUNK, out_fwd.data_ptr(), out_bwd.data_ptr(),
@@ -509,7 +528,7 @@ def fused_minibatch_grad(
         metrics.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on_error(err, "fused_minibatch_grad")
-    LAUNCHES["fused_minibatch_grad"] += 1
+    LAUNCHES["fused_minibatch_grad_chain"] += 1
     return tuple(grads), dict(zip(METRICS, metrics.unbind()))
 
 

@@ -16,8 +16,10 @@ route with integers and sampled actions exact, floats 1e-5; the
 bfloat16 route (tensor cores) on the uniforms table, every differing
 action a near tie, floats on the agreeing envs within their bounds
 (given at the test). The update kernels at 2v2
-(64, 64) in both modes (per leaf rel-L2, bounds with their reasons at
-the test) and one train_iteration on the collect and update kernels.
+(64, 64), 5v5 and 4v4 at (256, 256) and other shapes in both modes (per
+leaf rel-L2, bounds with their reasons at the test), W2 streamed bitwise
+equal to resident at 3v3 (256, 256), and one train_iteration on the
+collect and update kernels.
 The recurrent collect in table and Philox modes from non-zero carries
 (3v3 ragged, custom, 2v2 at H = 128): the float32 route with integers and
 sampled actions exact, floats and carries 1e-5, the input carries
@@ -367,31 +369,39 @@ def _update_case(cuda, ppt, hidden, n_blocks, block, idx, seed=5):
     (5, (48, 40), 6, 128, [4, 1, 5]),        # widths and G*5 not tile multiples
     (3, (100,), 4, 256, [2, 0, 3]),          # one layer, padded to 128
     (2, (32, 16), 40, 128, list(range(39, 0, -1))),   # 39 blocks: chunks of 4096
-], ids=["2v2-64-64", "5v5-128-128", "5v5-48-40", "3v3-100", "2v2-32-16"])
+    # W2 streamed: 9 blocks of 1024, three chunks, the last a quarter full
+    (5, (256, 256), 10, 1024, [9, 2, 7, 0, 4, 1, 8, 5, 3]),
+    (4, (256, 256), 6, 1024, [5, 0, 3, 1, 4]),
+], ids=["2v2-64-64", "5v5-128-128", "5v5-48-40", "3v3-100", "2v2-32-16",
+        "5v5-256-256", "4v4-256-256"])
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-3)],
                          ids=["float32", "bfloat16"])
 def test_update_kernels_match_plain(cuda, dtype, rel, ppt, hidden, n_blocks,
                                     block, idx):
-    """Permuted minibatches at 2v2 (64, 64), 5v5 (G = 10) and widths that
-    are not tile multiples: per leaf rel-L2 within 1e-4 (float32, the
-    CUDA-core chain: sums in another order) or 1e-3 (bfloat16, the
-    tensor-core kernels: the same rounding points, so the order of the
-    sums and the rare one-ulp flip of a rounded operand it causes);
-    metric sums within 1e-4 of the larger of the sum and the sample
-    count; two calls identical (no atomics)."""
+    """Permuted minibatches at 2v2 (64, 64), 5v5 (G = 10), widths that
+    are not tile multiples and 4v4 / 5v5 at (256, 256) (W2 streamed):
+    per leaf rel-L2 within 1e-4 (float32, the CUDA-core chain: sums in
+    another order) or 1e-3 (bfloat16, the tensor-core kernels: the same
+    rounding points, so the order of the sums and the rare one-ulp flip
+    of a rounded operand it causes); metric sums within 1e-4 of the
+    larger of the sum and the sample count; two calls identical (no
+    atomics); each launch counted under its route."""
     torch.backends.cuda.matmul.allow_tf32 = False
     args, kw = _update_case(cuda, ppt, hidden, n_blocks, block, idx)
     m = len(idx) * block
     route = tfu.update_plan(args[1].shape[0], hidden, args[0][-4].shape[1], m,
                             dtype)["route"]
     assert route == ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
-    before = ops.LAUNCHES["fused_minibatch_grad"]
+    before = dict(ops.LAUNCHES)
     got = ops.fused_minibatch_grad(*args, **kw, compute_dtype=dtype)
     again = ops.fused_minibatch_grad(*args, **kw, compute_dtype=dtype)
     want = tfu.fused_minibatch_grad_reference(*args, **kw, compute_dtype=dtype)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["fused_minibatch_grad"] == before + 2
+    counted = ("fused_minibatch_grad" if dtype == torch.bfloat16
+               else "fused_minibatch_grad_chain")
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        k: 2 if k == counted else 0 for k in before}
     assert [g.shape for g in got[0]] == [w.shape for w in args[0]]
     for k, p, a in zip(got[0], want[0], again[0]):
         assert k.device.type == "cuda" and torch.isfinite(k).all()
@@ -402,6 +412,33 @@ def test_update_kernels_match_plain(cuda, dtype, rel, ppt, hidden, n_blocks,
         k, p = got[1][m].item(), want[1][m].item()
         assert abs(k - p) <= 1e-4 * max(abs(p), n_samples), m
         assert torch.equal(got[1][m], again[1][m])
+
+
+@pytest.mark.cuda
+def test_update_streamed_w2_matches_resident(cuda, monkeypatch):
+    """At 3v3 (256, 256), where W2 fits in the forward block and stays
+    resident, the streamed layout (forced by a shared-memory limit below
+    the resident block, 229,504 bytes, and above the streamed one,
+    163,968) gives the same bits: the same products in the same order of
+    k steps."""
+    args, kw = _update_case(cuda, 3, (256, 256), 10, 1024,
+                            [9, 2, 7, 0, 4, 1, 8, 5, 3])
+    layouts = []
+    plan = tfu.update_plan
+
+    def recorded(*a, **k):
+        p = plan(*a, **k)
+        layouts.append(p["w2_layout"])
+        return p
+
+    monkeypatch.setattr(tfu, "update_plan", recorded)
+    resident = ops.fused_minibatch_grad(*args, **kw)
+    monkeypatch.setattr(tfu, "_SMEM_BYTES", 200000)
+    streamed = ops.fused_minibatch_grad(*args, **kw)
+    torch.cuda.synchronize()
+    assert layouts == ["resident", "streamed"]
+    assert all(torch.equal(a, b) for a, b in zip(resident[0], streamed[0]))
+    assert all(torch.equal(resident[1][m], streamed[1][m]) for m in tfu.METRICS)
 
 
 @pytest.mark.cuda

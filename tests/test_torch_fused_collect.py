@@ -442,6 +442,7 @@ def test_cpu_path_never_builds(monkeypatch):
                             "fused_collect_f32": 0,
                             "fused_selfplay_rollout_f32": 0,
                             "fused_minibatch_grad": 0,
+                            "fused_minibatch_grad_chain": 0,
                             "fused_recurrent_collect": 0,
                             "fused_recurrent_collect_f32": 0}
 

@@ -1,7 +1,7 @@
 """K3's tensor-core route without a card: the zero padding its kernels
 rely on, through the plain version, and the wrapper's planning helper
-(``ops.fused_update.update_plan``: route, padded sizes, shared memory,
-grids, buffers) with its refusals.
+(``ops.fused_update.update_plan``: route, padded sizes, W2's layout,
+shared memory, grids, buffers) with its refusals.
 
 Padding bounds: torso widths padded with zero units leave every
 gradient, sliced back, within 1e-6 rel-L2 of the unpadded one (float32
@@ -148,28 +148,85 @@ def test_plan_at_config_4():
     assert p["partial_floats"] == 256 * (p["e_fwd"] + p["e_bwd"])
 
 
-@pytest.mark.parametrize("f_dim,widths,g5,m,route,padded", [
-    (24, (48, 40), 20, 384, "tensor_cores", (32, 64, 64, 32)),
-    (48, (128, 128), 50, 1024, "tensor_cores", (48, 128, 128, 64)),
-    (24, (16,), 20, 256, "tensor_cores", (32, 64, 0, 32)),
-    (32, (100,), 30, 768, "tensor_cores", (32, 128, 0, 32)),
-    (48, (256, 256), 50, 1024, "cuda_cores", None),     # shared memory
-    (32, (256, 256, 256), 30, 1024, "cuda_cores", None),  # three layers
-    (32, (512,), 30, 1024, "cuda_cores", None),         # wider than 256
-], ids=["2v2-48-40", "5v5-128", "2v2-16", "3v3-100", "5v5-256", "three-layers",
-        "wide"])
-def test_plan_routes(f_dim, widths, g5, m, route, padded):
+def test_plan_at_config_5():
+    """Bench config 5's minibatch (5v5, F_pad 48, hidden (256, 256), G = 10,
+    2^21 samples): the tensor cores with W2 streamed through a ring of two
+    64-row slabs (resident, the forward block would need 270,592 bytes),
+    every size as the kernels carve it."""
+    p = tfu.update_plan(48, (256, 256), 50, 1 << 21)
+    assert p["route"] == "tensor_cores" and p["w2_layout"] == "streamed"
+    assert (p["f1p"], p["h1p"], p["h2p"], p["hp"], p["g5p"]) == (48, 256, 256, 256, 64)
+    # the ring: two slabs [64][256] of W2 in bf16
+    assert p["w2_ring_bytes"] == 2 * 64 * 256 * 2 == 65536
+    # forward: bf16 W1, W2's ring, Wl (rows padded by 8), obs, h, dlogits
+    # tiles; float32 logits, biases, value head, per-sample rows
+    halves = 48 * 256 + 2 * 64 * 256 + 256 * 72 + 48 * 64 + 256 * 64 + 64 * 64
+    floats = 64 * 64 + 256 + 256 + 64 + 256 + 16 * 64 + 8 * 64 + 2 * 10 * 64
+    assert p["smem_fwd"] == 2 * halves + 4 * floats == 205056 <= 232448
+    resident = 2 * (halves - 2 * 64 * 256 + 256 * 256) + 4 * floats
+    assert resident == 270592 > 232448
+    assert p["smem_bwd"] == 2 * (2 * 48 * 64 + 2 * 256 * 64 + 64 * 256 + 48 * 64
+                                 + 2 * 64 * 64) + 4 * (64 + 128) == 133888
+    assert p["n_chunks"] == p["fwd_blocks"] == 512
+    assert p["bwd_blocks"] == 512 * 4 == 2048 and p["tiles_per_chunk"] == 64
+    assert p["e_fwd"] == 256 * 64 + 64 + 2 * 256 + 8
+    assert p["e_bwd"] == 48 * 256 + 256 + 256 * 256
+    assert p["fwd_offsets"] == dict(dwl=0, dbl=16384, dwv=16448, dbv=16704,
+                                    db=16708, met=16964)
+    assert p["bwd_offsets"] == dict(dw1=0, db1=12288, dw2=12544)
+    assert p["dz_shape"] == (256, 1 << 21) and p["xb_shape"] == (48, 1 << 21)
+    assert p["partial_floats"] == 512 * (p["e_fwd"] + p["e_bwd"])
+
+
+@pytest.mark.parametrize("f_dim,widths,g5,m,route,padded,layout", [
+    (24, (48, 40), 20, 384, "tensor_cores", (32, 64, 64, 32), "resident"),
+    (48, (128, 128), 50, 1024, "tensor_cores", (48, 128, 128, 64), "resident"),
+    (24, (16,), 20, 256, "tensor_cores", (32, 64, 0, 32), None),
+    (32, (100,), 30, 768, "tensor_cores", (32, 128, 0, 32), None),
+    (48, (256, 256), 50, 1024, "tensor_cores", (48, 256, 256, 64), "streamed"),
+    (40, (256, 256), 40, 1024, "tensor_cores", (48, 256, 256, 48), "streamed"),
+    (32, (256, 256, 256), 30, 1024, "cuda_cores", None, None),  # three layers
+    (32, (512,), 30, 1024, "cuda_cores", None, None),         # wider than 256
+], ids=["2v2-48-40", "5v5-128", "2v2-16", "3v3-100", "5v5-256", "4v4-256",
+        "three-layers", "wide"])
+def test_plan_routes(f_dim, widths, g5, m, route, padded, layout):
     """Torso widths pad to multiples of 64, G*5 and F to multiples of 16;
-    what the tensor-core kernels cannot hold takes the CUDA-core chain,
-    as does every float32 call."""
+    W2 stays resident where the forward block fits shared memory and is
+    streamed where only that fits (4v4 and 5v5 at (256, 256)); what the
+    tensor-core kernels cannot hold takes the CUDA-core chain, as does
+    every float32 call."""
     p = tfu.update_plan(f_dim, widths, g5, m)
     assert p["route"] == route
     assert p["n_chunks"] == -(-m // tfu.CHUNK)
     if padded:
         assert (p["f1p"], p["h1p"], p["h2p"], p["g5p"]) == padded
+        assert p["w2_layout"] == layout
+        assert p["w2_ring_bytes"] == (4 * 64 * padded[2] if layout == "streamed"
+                                      else 0)
         assert p["smem_fwd"] <= 232448 and p["bwd_blocks"] == p["n_chunks"] * (
             p["h1p"] // 64)
     assert tfu.update_plan(f_dim, widths, g5, m, torch.float32)["route"] == "cuda_cores"
+
+
+def test_plan_streams_w2_where_resident_does_not_fit(monkeypatch):
+    """With less shared memory than config 4's resident forward block
+    (229,504 bytes) but more than its streamed one (163,968), the plan
+    streams W2: the way a test forces the streamed layout where both fit.
+    Every other size stays as at config 4."""
+    chosen = tfu.update_plan(32, (256, 256), 30, 1 << 20)
+    monkeypatch.setattr(tfu, "_SMEM_BYTES", 200000)
+    forced = tfu.update_plan(32, (256, 256), 30, 1 << 20)
+    assert chosen["w2_layout"] == "resident" and forced["w2_layout"] == "streamed"
+    assert (chosen["smem_fwd"], forced["smem_fwd"]) == (229504, 163968)
+    assert chosen["smem_fwd"] - forced["smem_fwd"] == 2 * (256 * 256 - 2 * 64 * 256)
+    assert forced["w2_ring_bytes"] == 65536 and chosen["w2_ring_bytes"] == 0
+    assert {k: v for k, v in forced.items()
+            if k not in ("w2_layout", "w2_ring_bytes", "smem_fwd")} == {
+        k: v for k, v in chosen.items()
+        if k not in ("w2_layout", "w2_ring_bytes", "smem_fwd")}
+    # below the streamed block, the chain
+    monkeypatch.setattr(tfu, "_SMEM_BYTES", 160000)
+    assert tfu.update_plan(32, (256, 256), 30, 1 << 20)["route"] == "cuda_cores"
 
 
 def test_plan_refusals():

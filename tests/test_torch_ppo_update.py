@@ -68,11 +68,12 @@ def _np(x):
     return np.asarray(jax.device_get(x))
 
 
-def _variables(rng, hidden):
+def _variables(rng, hidden, params=P):
     """Flax ActorCritic variables as numpy: lecun-scaled kernels and
     nonzero biases (so every bias gradient path is exercised)."""
-    dims = [F, *hidden]
-    shapes = list(zip(dims[:-1], dims[1:])) + [(dims[-1], G5), (dims[-1], 1)]
+    dims = [4 * params.n_bodies + 2, *hidden]
+    g5 = params.players_per_team * 2 * 5
+    shapes = list(zip(dims[:-1], dims[1:])) + [(dims[-1], g5), (dims[-1], 1)]
     return {"params": {
         f"Dense_{i}": {
             "kernel": rng.normal(0.0, a ** -0.5, (a, b)).astype(np.float32),
@@ -80,22 +81,29 @@ def _variables(rng, hidden):
         } for i, (a, b) in enumerate(shapes)}}
 
 
-def _packed(rng, shape):
-    """In-range bit-packed actions, 3 bits for each of the 2 players."""
-    a = rng.integers(0, 5, (2, *shape))
-    return (a[0] | (a[1] << 3)).astype(np.int32)
+def _packed(rng, shape, ppt=2):
+    """In-range bit-packed actions, 3 bits for each of the ``ppt`` players."""
+    a = rng.integers(0, 5, (ppt, *shape))
+    return sum(a[q] << (3 * q) for q in range(ppt)).astype(np.int32)
 
 
-def _minibatch_case(seed, hidden=(16, 8), n_blocks=4, idx=(2, 0)):
-    """One minibatch's inputs as numpy (K3's argument layout)."""
+def _minibatch_case(seed, hidden=(16, 8), n_blocks=4, idx=(2, 0), params=P,
+                    logp_old=None):
+    """One minibatch's inputs as numpy (K3's argument layout). The old
+    log-probs are ``-|N(0, 1)| * 2 * ppt`` unless ``logp_old(rng, shape)``
+    makes them."""
     rng = np.random.default_rng(seed)
-    variables = _variables(rng, hidden)
-    obs = np.zeros((F_PAD, n_blocks * BLOCK), np.float32)
-    obs[:F] = rng.normal(0.0, 1.0, (F, n_blocks * BLOCK))
+    ppt = params.players_per_team
+    f = 4 * params.n_bodies + 2
+    variables = _variables(rng, hidden, params)
+    obs = np.zeros((-(-f // 8) * 8, n_blocks * BLOCK), np.float32)
+    obs[:f] = rng.normal(0.0, 1.0, (f, n_blocks * BLOCK))
     shape = (n_blocks, BLOCK)
     data = dict(
-        obs_fm=obs, dirs_blk=_packed(rng, shape), acts_blk=_packed(rng, shape),
-        logp_blk=-np.abs(rng.normal(0.0, 1.0, shape)).astype(np.float32) * 4,
+        obs_fm=obs, dirs_blk=_packed(rng, shape, ppt),
+        acts_blk=_packed(rng, shape, ppt),
+        logp_blk=(-np.abs(rng.normal(0.0, 1.0, shape)).astype(np.float32) * 2 * ppt
+                  if logp_old is None else logp_old(rng, shape)),
         value_blk=rng.normal(0.0, 1.0, shape).astype(np.float32),
         ret_blk=rng.normal(0.0, 1.0, shape).astype(np.float32),
     )
@@ -111,9 +119,9 @@ def _kw(cfg, hidden):
                 ent_coef=cfg.ent_coef, block=BLOCK)
 
 
-def _jax_kernel(case, hidden, dtype):
+def _jax_kernel(case, hidden, dtype, params=P):
     variables, data, _, adv_n, idx = case
-    jmodel = JActorCritic(n_players=P.players_per_team, hidden=hidden)
+    jmodel = JActorCritic(n_players=params.players_per_team, hidden=hidden)
     w = jfc.flatten_actor_critic(jax.tree.map(jnp.asarray, variables), jmodel)
     grads, sums = jfu.fused_minibatch_grad(
         w, **{k: jnp.asarray(v) for k, v in data.items()},
@@ -122,9 +130,9 @@ def _jax_kernel(case, hidden, dtype):
     return [_np(g) for g in grads], {k: float(v) for k, v in sums.items()}
 
 
-def _port_reference(case, hidden, dtype):
+def _port_reference(case, hidden, dtype, params=P):
     variables, data, _, adv_n, idx = case
-    model = actor_critic_from_flax(variables, P.players_per_team, device="cpu")
+    model = actor_critic_from_flax(variables, params.players_per_team, device="cpu")
     grads, sums = tfu.fused_minibatch_grad_reference(
         tfc.flatten_actor_critic(model),
         **{k: torch.from_numpy(v) for k, v in data.items()},
@@ -220,6 +228,59 @@ def test_fused_reference_bf16_rounds_where_jax_does(k3_case):
         assert err <= 2e-4 and err <= gap / 5, (i, err, gap)
     for k in tfu.METRICS:
         np.testing.assert_allclose(got_m[k], want_m[k], rtol=2e-4, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def k3_case_5v5():
+    """JAX's kernel (interpret mode) in float32 and bfloat16 at the torso
+    width of bench config 5: 5v5 (G = 10), hidden (256, 256), blocks 1
+    and 2 of 3 (256 samples). The old log-probs scatter around the
+    policy's own (10 groups of ~-log 5, N(0, 0.15) apart), so that both
+    sides of the surrogate's clip decide some samples."""
+    hidden = (256, 256)
+    params = JEnvParams(players_per_team=5)
+
+    def logp_old(rng, shape):
+        return (-10 * np.log(5.0) + rng.normal(0.0, 0.15, shape)).astype(np.float32)
+
+    case = _minibatch_case(5, hidden, n_blocks=3, idx=(1, 2), params=params,
+                           logp_old=logp_old)
+    return dict(case=case, hidden=hidden, params=params,
+                f32=_jax_kernel(case, hidden, jnp.float32, params),
+                bf16=_jax_kernel(case, hidden, jnp.bfloat16, params))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_fused_reference_matches_jax_kernel_at_5v5_256(k3_case_5v5, dtype):
+    """K3's plain version against JAX's kernel at 5v5 (256, 256), the
+    shape whose card kernel streams W2, with the 2v2 case's bounds:
+    float32 rtol 2e-4 / atol 2e-6; bfloat16 per leaf within 2e-4 rel-L2
+    and within a fifth of the leaf's float32-to-bfloat16 gap; metrics
+    rtol 2e-4."""
+    c = k3_case_5v5
+    want_g, want_m = c["f32" if dtype == torch.float32 else "bf16"]
+    got_g, got_m = _port_reference(c["case"], c["hidden"], dtype, c["params"])
+    assert [g.shape for g in got_g] == [g.shape for g in want_g]
+    assert got_g[0].shape == (46, 256)
+    if dtype == torch.float32:
+        for a, b in zip(got_g, want_g):
+            np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-6)
+    else:
+        for i, (a, b, f) in enumerate(zip(got_g, want_g, c["f32"][0])):
+            gap, err = _rel_l2(f, b), _rel_l2(a, b)
+            assert err <= 2e-4 and err <= gap / 5, (i, err, gap)
+    for k in tfu.METRICS:
+        np.testing.assert_allclose(got_m[k], want_m[k], rtol=2e-4, err_msg=k)
+    # both clips decide some samples' gradients
+    variables, data, _, adv_n, idx = c["case"]
+    model = actor_critic_from_flax(variables, 5, device="cpu")
+    _, terms = tfu.fused_minibatch_grad_reference(
+        tfc.flatten_actor_critic(model),
+        *(torch.from_numpy(v) for v in data.values()),
+        torch.from_numpy(adv_n), torch.from_numpy(idx),
+        **_kw(tppo.PPOConfig(), c["hidden"]), compute_dtype=dtype, per_sample=True)
+    assert 0 < terms["pg_clip"].mean() < 1 and 0 < terms["v_clip"].mean() < 1
 
 
 def test_fused_reference_per_sample_terms(k3_case):
