@@ -72,7 +72,13 @@ port's main paths:
   resident), then with K3 forced to the CUDA-core chain, each split into
   collect, update and the rest, with their launch counts; K3 alone on a
   config-5 minibatch against its plain version, timed beside the chain,
-  the plain version, its bound and cuBLAS, and a profile of one update.
+  the plain version, its bound and cuBLAS, and a profile of one update;
+  K2's bound per step at config 5 and cuBLAS on its per-step products;
+- phase 21, the learning gates (gym_futbol_tpu_torch.check_learning and
+  check_recurrent_learning) in this process at a smoke budget: the MLP
+  gate split over two calls (--max-new-seeds 1 exits 2, the second call
+  trains only the rest and plays the league), then recurrent PPO on
+  fused_recurrent_collect, every kernel's launches counted exactly.
 Phase 6 also measures the contact solver's active share (the pairs and
 walls the culled env step updates) at config 3, the 5v5 scale and config
 4, and the env step's operation count, and so every bound that counts
@@ -747,12 +753,8 @@ def policy_phases(dev, custom, shares) -> list[dict]:
     def bf16_ops(weights):       # two per multiply-add of the bf16 products
         return sum(2 * w.numel() for w in weights[::2])
 
-    ops_k2 = env_step_ops(p4, shares["3v3"]) + 2 * mlp_ops(w4)
-    ops_k2_bf16 = 2 * bf16_ops(w4[:-2])
-    bytes_k2 = (2 * nbytes(sf4, si4) + nbytes(*w4)
-                + 4 * 2 * B4 * (fc.feature_rows(p4) * T4 + 6 * T4 + 1))
-    bound_k2_f32 = bound(bytes_k2 / T4, B4 * ops_k2)
-    bound_k2 = bound(bytes_k2 / T4, B4 * (ops_k2 - ops_k2_bf16), B4 * ops_k2_bf16)
+    bound_k2, bound_k2_f32, ops_k2, ops_k2_bf16 = k2_bound(
+        p4, w4, sf4, si4, B4, T4, shares["3v3"])
     ops_k4 = env_step_ops(p6, shares["2v2"]) + mlp_ops(wa6) + mlp_ops(wb6)
     ops_k4_bf16 = bf16_ops(wa6) + bf16_ops(wb6)
     bytes_k4 = (2 * nbytes(sf6, si6) + nbytes(*wa6, *wb6)
@@ -771,29 +773,23 @@ def policy_phases(dev, custom, shares) -> list[dict]:
           f"{bound_k4_f32[0]:.6g} ({bound_k4_f32[1]})")
     # yardstick, never called by the port: cuBLAS (torch.matmul, bf16) on
     # the same per-step layer products of both views
-    x4 = [torch.randn(2 * B4, d, device=dev, dtype=bf16) for d in (obs_size(p4), *H4)]
-    m4 = [w.to(bf16) for w in w4[:-2:2]]
+    ms_cublas4 = k2_cublas_ms(dev, p4, w4, B4, H4)
     x6 = [torch.randn(B6, d, device=dev, dtype=bf16) for d in (obs_size(p6), *H6)]
     m6 = [w.to(bf16) for w in (*wa6[::2], *wb6[::2])]
-
-    def products4(i):
-        for x, w in zip(x4, m4):
-            torch.matmul(x, w)
 
     def products6(i):
         for v in range(2):
             for x, w in zip(x6, m6[3 * v:3 * v + 3]):
                 torch.matmul(x, w)
 
-    products4(0)
     products6(0)
-    ms_cublas4, ms_cublas6 = time_cuda(products4, 20), time_cuda(products6, 20)
+    ms_cublas6 = time_cuda(products6, 20)
     phase("10 kernels", f"yardstick: cuBLAS (torch.matmul, bf16) on the same "
           f"per-step layer products of both views: config 4 {ms_cublas4:.5f} "
           f"ms/step ({B4 * ops_k2_bf16 / ms_cublas4 / 1e9:.4g} TFLOP/s), config 6 "
           f"{ms_cublas6:.5f} ({B6 * ops_k4_bf16 / ms_cublas6 / 1e9:.4g} TFLOP/s), "
           f"20 iterations each")
-    del x4, x6
+    del x6
     for line in ptxas_summary(_build_log()):
         if line.startswith(("collect_", "selfplay_")):
             phase("10 kernels", line)
@@ -979,6 +975,45 @@ def timed_iterations(runner, params, cfg, n_iters: int):
         ms=per_iter(totals), collect=per_iter(spans["collect"][1:]),
         update=per_iter(spans["update"][1:]), history=history,
         launches=launches, iters=n_iters + 1)
+
+
+def k2_bound(params, weights, sf, si, n_envs: int, n_steps: int, share):
+    """K2's least time per step of a collect: the state read and written
+    and the weights read once per collect, the [F_pad, 2BT] obs buffer,
+    its per-step rows and the bootstrap values written once; operations
+    per env-step the env step at the active ``share`` and both views' MLP,
+    of them the torso's and logits head's products on the tensor cores
+    (bf16), the biases and the value head in float32. Returns (bf16 bound,
+    f32 bound, operations per env-step, of them bf16)."""
+    fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+    ops_all = env_step_ops(params, share) + 2 * mlp_ops(weights)
+    ops_bf16 = 2 * sum(2 * w.numel() for w in weights[:-2:2])
+    n_bytes = (2 * nbytes(sf, si) + nbytes(*weights) + 4 * 2 * n_envs
+               * (fc.feature_rows(params) * n_steps + 6 * n_steps + 1))
+    return (bound(n_bytes / n_steps, n_envs * (ops_all - ops_bf16),
+                  n_envs * ops_bf16),
+            bound(n_bytes / n_steps, n_envs * ops_all), ops_all, ops_bf16)
+
+
+def k2_cublas_ms(dev, params, weights, n_envs: int, hidden) -> float:
+    """The yardstick, never called by the port: cuBLAS (torch.matmul,
+    bf16) on K2's per-step layer products of both views (the torso and the
+    logits head), ms per step over 20."""
+    import torch
+
+    from gym_futbol_tpu_torch import obs_size
+
+    bf16 = torch.bfloat16
+    xs = [torch.randn(2 * n_envs, d, device=dev, dtype=bf16)
+          for d in (obs_size(params), *hidden)]
+    ws = [w.to(bf16) for w in weights[:-2:2]]
+
+    def products(i):
+        for x, w in zip(xs, ws):
+            torch.matmul(x, w)
+
+    products(0)
+    return time_cuda(products, 20)
 
 
 def k3_bound(weights, f_pad: int, m: int, mb_blocks: int):
@@ -2301,7 +2336,7 @@ class FutbolEnvRun:
 
 
 
-def config5_phase(dev, k2_plan: dict) -> dict:
+def config5_phase(dev, k2_plan: dict, shares: dict) -> tuple[dict, dict]:
     """Phase 20: the bench config-5 PPO iteration (5v5, 65536 envs, T=64,
     hidden (256, 256), 4 x 4 minibatches of 2^21 samples) through
     train_iteration on the fused collect and K3 in bfloat16, first on the
@@ -2312,8 +2347,10 @@ def config5_phase(dev, k2_plan: dict) -> dict:
     after one update on the buffer), timed beside the chain, the plain
     version, its bound and cuBLAS on the same products. ``k2_plan``: the
     collect's layout phase 7 held against its plain version, which this
-    phase's collect must take. Returns K3's config-5 fields of the
-    kernels line."""
+    phase's collect must take. Also K2's bound per step at config 5, by
+    phase 10's rules on phase 6's 5v5 active ``shares``, beside the
+    collect's time and a cuBLAS yardstick of its per-step products.
+    Returns K3's and K2's config-5 fields of the kernels line."""
     import torch
 
     from gym_futbol_tpu_torch import EnvParams, obs_size, ops, ppo
@@ -2366,6 +2403,25 @@ def config5_phase(dev, k2_plan: dict) -> dict:
               f"{it['ms'] - it['collect'] - it['update']:.3f} ms; launches "
               f"{launches}; loss " + " ".join(f"{v:.5g}" for v in values["loss"]))
     k3_launches = runs["tensor cores"]["launches"]["fused_minibatch_grad"]
+
+    # K2's bound per step at config 5, at phase 6's 5v5 active share, and
+    # its cuBLAS yardstick
+    w5 = fc.flatten_actor_critic(model)
+    sf5, si5 = ops.pack_state(runner.env_state, p5)
+    bound_k2, _, ops_k2, ops_k2_bf16 = k2_bound(p5, w5, sf5, si5, B5, T5,
+                                                shares["5v5"])
+    del sf5, si5
+    ms_cublas_k2 = k2_cublas_ms(dev, p5, w5, B5, H5)
+    k2_step = runs["tensor cores"]["collect"] / T5
+    phase("20 bound", f"fused_collect at config 5 (5v5 B={B5} hidden {H5}): "
+          f"{ops_k2} operations per env-step (the env step "
+          f"{env_step_ops(p5, shares['5v5'])} at phase 6's 5v5 share), of them "
+          f"{ops_k2_bf16} bf16 products -> bound {bound_k2[0]:.6g} ms/step "
+          f"({bound_k2[1]}); the collect above {k2_step:.5f} ms/step, "
+          f"{bound_k2[0] / k2_step:.4g} of it the bound; cuBLAS (torch.matmul, "
+          f"bf16) on the same per-step products of both views "
+          f"{ms_cublas_k2:.5f} ms/step "
+          f"({B5 * ops_k2_bf16 / ms_cublas_k2 / 1e9:.4g} TFLOP/s), 20 iterations")
 
     # K3 alone on one minibatch of a fresh buffer: on-policy, as the main
     # path's first minibatch of each iteration, then on the weights after
@@ -2433,6 +2489,13 @@ def config5_phase(dev, k2_plan: dict) -> dict:
           f"{wall_ms:.3f} ms wall, device busy share {busy:.4f}; device ms by "
           f"kernel: " + "; ".join(f"{name} {n}x {ms:.3f}" for name, n, ms in rows[:8]))
     phase("20 time", f"phase 20 in {time.perf_counter() - t0:.1f} s")
+    k2_fields = {"config5_ms": k2_step, "config5_bound_ms": bound_k2[0],
+                 "config5_bound_by": bound_k2[1],
+                 "config5_library_ms": ms_cublas_k2,
+                 "config5_time_unit": f"ms per step of phase 20's collect, 5v5 "
+                                      f"B={B5} T={T5} hidden {H5}, bfloat16; "
+                                      f"library_ms: cuBLAS on its per-step "
+                                      f"bf16 layer products"}
     return {"config5_launches": k3_launches, "config5_max_abs_err": max(err, err_on),
             "config5_ms": ms_tc, "config5_chain_ms": ms_chain,
             "config5_plain_ms": plain_ms, "config5_bound_ms": bound_bf16[0],
@@ -2442,7 +2505,109 @@ def config5_phase(dev, k2_plan: dict) -> dict:
             "config5_unit": f"ms per launch, bfloat16, one config-5 minibatch of "
                             f"{m5} samples (5v5, hidden {H5}, W2 streamed); "
                             f"launches: the {N5_ITERS + 1} tensor-core "
-                            f"iterations of phase 20"}
+                            f"iterations of phase 20"}, k2_fields
+
+
+# Phase 21: both learning gates at a smoke budget (episodes of
+# GATE_MAX_STEPS steps, so the plain evaluations stay short)
+GATE_MAX_STEPS = 20
+GATE_KEYS = {"metric", "ppt", "value", "unit", "threshold", "ok", "per_seed",
+             "monotonic_all", "league_points", "train_env_steps_per_seed",
+             "train_seconds_total", "hyperparams"}
+
+
+def run_gate(module, argv: list[str]) -> tuple[int, list[str]]:
+    """``module.main(argv)`` in this process (so ops.LAUNCHES counts its
+    launches): (exit code, its stdout lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def gate_verdict(rc: int, lines: list[str], label: str) -> dict:
+    """The gate's last line, checked: JAX's keys, and exit 0 exactly when
+    it passed, else 1. At a smoke budget the policies have barely moved,
+    so the verdict itself may go either way: the strict final-beats-1/3
+    test has few goals to count."""
+    out = json.loads(lines[-1])
+    check(set(out) == GATE_KEYS, f"21: {label}: the last line's keys {sorted(out)}")
+    check(rc == (0 if out["ok"] else 1), f"21: {label}: exit {rc}, ok {out['ok']}")
+    check(not out["ok"] or (out["value"] >= out["threshold"]
+                            and out["monotonic_all"]),
+          f"21: {label}: the verdict {out}")
+    return out
+
+
+def learning_gate_phase() -> None:
+    """Phase 21: the learning gates on the card at a smoke budget
+    (gym_futbol_tpu_torch.check_learning and check_recurrent_learning,
+    called in this process). The MLP gate (2v2, 512 envs, 4 iterations, 2
+    seeds, 256 evaluation envs) first with --max-new-seeds 1, which must
+    leave seed 1 untrained and exit 2, then again, which must load seed 0,
+    train only seed 1, play the league and print the verdict; K2, K3 and
+    K4 launched on their bf16 routes as many times as the gate's
+    iterations and matches need. Then recurrent PPO on K5
+    (--fused-collect, 1 seed, 2 iterations, no league)."""
+    import shutil
+
+    from gym_futbol_tpu_torch import check_learning, check_recurrent_learning, ops
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, "build", "chip_smoke_21")
+    shutil.rmtree(scratch, ignore_errors=True)
+    iters, seeds = 4, 2
+    argv = ["--ppt", "2", "--envs", "512", "--iters", str(iters), "--seeds",
+            str(seeds), "--eval-envs", "256", "--win-threshold", "0",
+            "--max-steps", str(GATE_MAX_STEPS), "--out-dir", scratch]
+    ops.reset_launch_counts()
+    rc, first = run_gate(check_learning, argv + ["--max-new-seeds", "1"])
+    partial = json.loads(first[-1])
+    check(rc == 2 and partial.get("complete") is False
+          and partial["seeds_done"] == 1 and partial["trained_now"] == 1,
+          f"21: the first call (--max-new-seeds 1): exit {rc}, {partial}")
+    rc, second = run_gate(check_learning, argv)
+    launches = {k: ops.LAUNCHES[k] for k in (
+        "fused_collect", "fused_minibatch_grad", "fused_selfplay_rollout",
+        "fused_collect_f32", "fused_minibatch_grad_chain",
+        "fused_selfplay_rollout_f32")}
+    out = gate_verdict(rc, second, "check_learning")
+    trained = [sorted({x.split()[2] for x in lines if " iter " in x})
+               for lines in (first, second)]
+    check(trained == [["0"], ["1000"]]
+          and "# seed 0: loaded from " + scratch in second,
+          f"21: the seeds each call trained: {trained}")
+    # K4: each seed's match against random play and against its 1/3
+    # snapshot, then the league's seeds x (seeds - 1) matches
+    want = {"fused_collect": seeds * iters,
+            "fused_minibatch_grad": seeds * iters * 16,
+            "fused_selfplay_rollout": 2 * seeds + seeds * (seeds - 1),
+            "fused_collect_f32": 0, "fused_minibatch_grad_chain": 0,
+            "fused_selfplay_rollout_f32": 0}
+    check(launches == want, f"21: the MLP gate's launches {launches}, "
+          f"expected {want}")
+    phase("21 gate", f"check_learning 2v2 512 envs x {iters} iterations x "
+          f"{seeds} seeds, max_steps {GATE_MAX_STEPS}: first call exit 2 "
+          f"({partial}), second exit {rc}: {second[-1]}; launches {launches}")
+    rargv = ["--algo", "ppo", "--fused-collect", "--seeds", "1", "--iters", "2",
+             "--envs", "512", "--eval-envs", "256", "--max-steps",
+             str(GATE_MAX_STEPS), "--no-league", "--win-threshold", "0",
+             "--out-dir", scratch]
+    ops.reset_launch_counts()
+    rc, lines = run_gate(check_recurrent_learning, rargv)
+    gate_verdict(rc, lines, "check_recurrent_learning")
+    launches = {k: ops.LAUNCHES[k] for k in ("fused_recurrent_collect",
+                                             "fused_recurrent_collect_f32")}
+    check(launches == {"fused_recurrent_collect": 2, "fused_recurrent_collect_f32": 0},
+          f"21: the recurrent gate's launches {launches}")
+    phase("21 gate", f"check_recurrent_learning --algo ppo --fused-collect 2v2 "
+          f"512 envs x 2 iterations, 1 seed: exit {rc}: {lines[-1]}; launches "
+          f"{launches}")
+    shutil.rmtree(scratch, ignore_errors=True)
+    phase("21 time", f"phase 21 in {time.perf_counter() - t0:.1f} s")
 
 
 def device_profile(fn):
@@ -2821,7 +2986,11 @@ def main() -> int:
     recurrent_record = recurrent_phases(dev, custom, shares)
     normalized_phases(dev, main12)
     distributed_phases(dev)
-    update_record.update(config5_phase(dev, policy_record[0]["config5_plan"]))
+    k3_config5, k2_config5 = config5_phase(
+        dev, policy_record[0]["config5_plan"], shares)
+    update_record.update(k3_config5)
+    policy_record[0].update(k2_config5)
+    learning_gate_phase()
     phase("time", "seconds per phase (each interval between two lines charged "
           "to the phase of the later): " + json.dumps(
               {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))

@@ -202,6 +202,21 @@ def make_policy_fn(model: ActorCritic):
     return policy
 
 
+def make_normalized_policy_fn(model: ActorCritic, obs_norm):
+    """:func:`make_policy_fn` for a policy trained through observation
+    normalisation: the FROZEN ``obs_norm`` statistics
+    (:class:`~gym_futbol_tpu_torch.wrappers.RunningNorm`) z-score the raw
+    env observation before the forward, VecNormalize's evaluation
+    semantics (the statistics are not updated at evaluation time)."""
+
+    @torch.no_grad()
+    def policy(generator: torch.Generator, obs: torch.Tensor) -> torch.Tensor:
+        logits, _ = model(obs_norm.normalize(obs))
+        return sample_actions(logits, generator=generator)[0]
+
+    return policy
+
+
 def init_params(generator: torch.Generator, model: ActorCritic,
                 env_params: EnvParams) -> ActorCritic:
     """(Re)initialise ``model`` from ``generator`` for ``env_params``'s

@@ -188,11 +188,14 @@ def test_port_imports_no_jax():
     recurrent_ppo, models.recurrent and ops.fused_recurrent, wrappers,
     utils.checkpoint and utils.metrics, and the distribution layer and
     user-facing surface: parallel.mesh, parallel.rollout, spaces,
-    entities, registry, render and utils.profiling among them) still
-    imports."""
+    entities, registry, render and utils.profiling among them, and the
+    learning gates check_learning and check_recurrent_learning) still
+    imports. No module is loaded from parity/ (the JAX package's
+    scripts), and both learning gates ask for the card when no --device
+    is given."""
     code = (
-        "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'flax', 'optax', 'gym_futbol_tpu'):\n"
+        "import os, sys, pkgutil, importlib\n"
+        "for name in ('jax', 'flax', 'optax', 'gym_futbol_tpu', 'parity'):\n"
         "    sys.modules[name] = None\n"
         "import gym_futbol_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -211,9 +214,17 @@ def test_port_imports_no_jax():
         "        'gym_futbol_tpu_torch.parallel.rollout',\n"
         "        'gym_futbol_tpu_torch.spaces', 'gym_futbol_tpu_torch.entities',\n"
         "        'gym_futbol_tpu_torch.registry', 'gym_futbol_tpu_torch.render',\n"
-        "        'gym_futbol_tpu_torch.utils.profiling'} <= set(names)\n"
+        "        'gym_futbol_tpu_torch.utils.profiling',\n"
+        "        'gym_futbol_tpu_torch.check_learning',\n"
+        "        'gym_futbol_tpu_torch.check_recurrent_learning'} <= set(names)\n"
         "assert not any(k.startswith(('jax', 'flax', 'optax', 'gym_futbol_tpu.'))\n"
         "               and sys.modules[k] for k in sys.modules)\n"
+        "parity = os.path.join(os.getcwd(), 'parity') + os.sep\n"
+        "assert not any((getattr(m, '__file__', None) or '').startswith(parity)\n"
+        "               for m in list(sys.modules.values()) if m)\n"
+        "from gym_futbol_tpu_torch import check_learning, check_recurrent_learning\n"
+        "assert check_learning.parse_args([]).device == 'cuda'\n"
+        "assert check_recurrent_learning.parse_args([]).device == 'cuda'\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
