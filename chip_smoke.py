@@ -77,8 +77,12 @@ port's main paths:
 - phase 21, the learning gates (gym_futbol_tpu_torch.check_learning and
   check_recurrent_learning) in this process at a smoke budget: the MLP
   gate split over two calls (--max-new-seeds 1 exits 2, the second call
-  trains only the rest and plays the league), then recurrent PPO on
-  fused_recurrent_collect, every kernel's launches counted exactly.
+  trains only the rest and plays the league), then recurrent PPO and
+  recurrent A2C on fused_recurrent_collect (A2C on the route the package
+  picks for it), every kernel's launches counted exactly;
+- phase 22, the JAX package's array-form game, physics and types API on
+  a CUDA batch (bench config 4's 16384 3v3 envs, states from one K1a
+  rollout), each function bitwise equal to its scalar form.
 Phase 6 also measures the contact solver's active share (the pairs and
 walls the culled env step updates) at config 3, the 5v5 scale and config
 4, and the env step's operation count, and so every bound that counts
@@ -2550,10 +2554,12 @@ def learning_gate_phase() -> None:
     train only seed 1, play the league and print the verdict; K2, K3 and
     K4 launched on their bf16 routes as many times as the gate's
     iterations and matches need. Then recurrent PPO on K5
-    (--fused-collect, 1 seed, 2 iterations, no league)."""
+    (--fused-collect, 1 seed, 2 iterations, no league), and recurrent A2C
+    the same way on the route ``a2c.FUSED_COLLECT_DTYPE`` picks for it,
+    its launches counted under that route's name."""
     import shutil
 
-    from gym_futbol_tpu_torch import check_learning, check_recurrent_learning, ops
+    from gym_futbol_tpu_torch import a2c, check_learning, check_recurrent_learning, ops
 
     t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2606,8 +2612,123 @@ def learning_gate_phase() -> None:
     phase("21 gate", f"check_recurrent_learning --algo ppo --fused-collect 2v2 "
           f"512 envs x 2 iterations, 1 seed: exit {rc}: {lines[-1]}; launches "
           f"{launches}")
+    # recurrent A2C on the route the package picks for it: its launches
+    # land under that route's name only
+    route = a2c.FUSED_COLLECT_DTYPE["a2c"]
+    ops.reset_launch_counts()
+    rc, lines = run_gate(check_recurrent_learning,
+                         ["--algo", "a2c", *rargv[2:]])
+    out = gate_verdict(rc, lines, "check_recurrent_learning --algo a2c")
+    launches = {k: ops.LAUNCHES[k] for k in ("fused_recurrent_collect",
+                                             "fused_recurrent_collect_f32")}
+    f32 = route == "float32"
+    check(out["hyperparams"]["collect_dtype"] == route
+          and launches == {"fused_recurrent_collect": 0 if f32 else 2,
+                           "fused_recurrent_collect_f32": 2 if f32 else 0},
+          f"21: the recurrent A2C gate's route {out['hyperparams']} and "
+          f"launches {launches}, expected {route}")
+    phase("21 gate", f"check_recurrent_learning --algo a2c --fused-collect 2v2 "
+          f"512 envs x 2 iterations, 1 seed, route {route}: exit {rc}: "
+          f"{lines[-1]}; launches {launches}")
     shutil.rmtree(scratch, ignore_errors=True)
     phase("21 time", f"phase 21 in {time.perf_counter() - t0:.1f} s")
+
+
+def array_api_phase(dev, params, sf, si) -> None:
+    """Phase 22: the JAX package's per-env API in its array form
+    (game.decode_forces, update_possession, apply_kick, apply_dribble,
+    detect_goal, clamp_oob, kickoff_positions, shaped_rewards;
+    physics.integrate_velocity, solve_contacts; types.body_masses,
+    body_radii, body_elasticities, team_of_body) on a CUDA batch: bench
+    config 4's 16384 3v3 envs in the states one K1a rollout left, random
+    actions (out-of-range ints among them), kick angles and kickoff noise;
+    each function's outputs bitwise equal to its scalar form's on the same
+    tensors. No kernel runs here."""
+    import torch
+
+    from gym_futbol_tpu_torch import game, physics
+    from gym_futbol_tpu_torch import types as ttypes
+    from gym_futbol_tpu_torch.ops import unpack_state
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    state = unpack_state(sf, si, params)
+    pos, vel, poss = state.pos, state.vel, state.possession
+    b, n = pos.shape[0], params.n_bodies
+    gen = torch.Generator(device=dev).manual_seed(22)
+    acts = torch.randint(-1, 6, (b, params.n_players, 2), generator=gen,
+                         device=dev, dtype=torch.int32)
+    theta = torch.randn(b, generator=gen, device=dev) * params.kick_noise
+    noise = torch.rand((b, n, 2), generator=gen, device=dev) * 2.0 - 1.0
+    pos1 = pos + torch.randn(pos.shape, generator=gen, device=dev)
+    goals = torch.rand((b, 2), generator=gen, device=dev) < 0.1
+    clamped = torch.rand(b, generator=gen, device=dev) < 0.1
+    table_fns = (ttypes.body_masses, ttypes.body_radii,
+                 ttypes.body_elasticities, ttypes.team_of_body)
+    tables = [fn(params, device=dev) for fn in table_fns]
+    check(all(t.device.type == dev.type and torch.equal(t.cpu(), fn(params))
+              for t, fn in zip(tables, table_fns)), "22: the body tables")
+    c = physics.physics_constants(params, f32)
+    px, py = physics.split_xy(pos)
+    vx, vy = physics.split_xy(vel)
+    dirs, acts_l = game.split_actions(acts, params)
+    xy = physics.stack_xy
+    fx, fy = game.decode_forces_scalars(dirs, acts_l, params, f32)
+    dvx, dvy, kick_owner = game.apply_kick_scalars(px, py, vx, vy, poss, acts_l,
+                                                   theta, params, f32)
+    kick_vel = vel.clone()
+    kick_vel[:, 0, 0], kick_vel[:, 0, 1] = vx[0] + dvx, vy[0] + dvy
+    bpx, bpy, bvx, bvy = game.apply_dribble_scalars(px, py, vx, vy, poss, dirs,
+                                                    params, f32)
+    cpx, cpy, cvx, cvy, cball = game.clamp_oob_scalars(px, py, vx, vy, params, f32)
+    kx, ky = game.kickoff_scalars(*physics.split_xy(noise), params, f32)
+    dt_sub = params.dt / params.substeps
+    ivx, ivy = physics.integrate_velocity_scalars(
+        vx, vy, fx, fy, [c.inv_m_ball] + [c.inv_m_player] * (n - 1), c.damp,
+        c.dt_sub, c.max_speed)
+    svx, svy = physics._solve_contacts_scalar(px, py, vx, vy, params, f32)
+    inv_mass = 1.0 / tables[0]
+    pairs = {
+        "decode_forces": ((game.decode_forces(acts, params, f32),), (xy(fx, fy),)),
+        "update_possession": (
+            (game.update_possession(pos, poss, acts, params),),
+            (game.update_possession_scalars(px, py, poss, acts_l, params, f32),)),
+        "apply_kick": (game.apply_kick(pos, vel, poss, acts, theta, params),
+                       (kick_vel, kick_owner)),
+        "apply_dribble": (
+            game.apply_dribble(pos, vel, poss, acts, params),
+            (torch.cat([torch.stack([bpx, bpy], -1)[:, None], pos[:, 1:]], 1),
+             torch.cat([torch.stack([bvx, bvy], -1)[:, None], vel[:, 1:]], 1))),
+        "detect_goal": ((game.detect_goal(pos, params),),
+                        (torch.stack(game.detect_goal_scalars(px[0], py[0],
+                                                              params), -1),)),
+        "clamp_oob": (game.clamp_oob(pos, vel, params),
+                      (xy(cpx, cpy), xy(cvx, cvy), cball)),
+        "kickoff_positions": (game.kickoff_positions(noise, params),
+                              (xy(kx, ky), torch.zeros_like(pos))),
+        "shaped_rewards": (
+            (game.shaped_rewards(pos, pos1, poss, goals, clamped, params),),
+            (torch.stack(game.shaped_rewards_scalars(
+                px, py, *physics.split_xy(pos1), poss, goals[:, 0], goals[:, 1],
+                clamped, params, f32), -1),)),
+        "integrate_velocity": (
+            (physics.integrate_velocity(vel, xy(fx, fy), inv_mass, params,
+                                        dt_sub),), (xy(ivx, ivy),)),
+        "solve_contacts": ((physics.solve_contacts(pos, vel, params, inv_mass,
+                                                   *tables[1:3]),),
+                           (xy(svx, svy),)),
+    }
+    for name, (arr, ref) in pairs.items():
+        check(len(arr) == len(ref) and all(
+            a.shape == r.shape and torch.equal(a, r) for a, r in zip(arr, ref)),
+              f"22: {name}: the array form differs from the scalar form")
+    torch.cuda.synchronize()
+    owners = int((pairs["update_possession"][0][0] > 0).sum())
+    kicks = int((pairs["apply_kick"][0][0] != vel).any(-1).any(-1).sum())
+    phase("22 array API", f"3v3 B={b} (the states of one K1a rollout of 128 "
+          f"steps): {len(pairs)} array forms and the 4 body tables bitwise "
+          f"equal to the scalar forms on the card ({owners} owners, {kicks} "
+          f"kicks) in {time.perf_counter() - t0:.1f} s")
 
 
 def device_profile(fn):
@@ -2991,6 +3112,7 @@ def main() -> int:
     update_record.update(k3_config5)
     policy_record[0].update(k2_config5)
     learning_gate_phase()
+    array_api_phase(dev, p4, sf4, si4)
     phase("time", "seconds per phase (each interval between two lines charged "
           "to the phase of the later): " + json.dumps(
               {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))

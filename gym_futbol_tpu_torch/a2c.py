@@ -18,6 +18,17 @@ carry it started with, resetting at the same episode ends, so gradients
 flow through time (BPTT). :mod:`gym_futbol_tpu_torch.recurrent_ppo`
 shares the collect and the runner.
 
+Where the package picks the fused recurrent collect's route for the
+user (:data:`FUSED_COLLECT_DTYPE`: the recurrent gate's default, the
+CLI's ``--recurrent --fused-collect``), recurrent A2C takes K5's exact
+float32 route and recurrent PPO its bfloat16 tensor-core route. A2C has
+no importance ratio to absorb the gap between the bf16 behaviour policy
+that samples the window and the float32 model its BPTT step re-runs:
+its gradient weighs every sampled action by the learner's log-prob as if
+the learner had sampled it. PPO's ratio ``exp(logp_learner -
+logp_collect)``, clipped, does absorb it. JAX's A2C gate trains on its
+exact plain collect.
+
 Both iterations take ``group``, a ``torch.distributed`` process group
 over which the envs are sharded (:mod:`gym_futbol_tpu_torch.parallel`):
 the gradients and metrics are averaged over the ranks before RMSProp's
@@ -55,6 +66,13 @@ from .ppo import (
 )
 from .types import EnvParams, EnvState
 from .vector import reset_batch
+
+
+# K5's route (``compute_dtype``) for the recurrent learners' fused collect
+# wherever the package picks it for the user: the recurrent gate's
+# --collect-dtype default and the training CLI's --recurrent
+# --fused-collect. A2C's is exact (see the module docstring).
+FUSED_COLLECT_DTYPE = {"a2c": "float32", "ppo": "bfloat16"}
 
 
 @dataclasses.dataclass(frozen=True)

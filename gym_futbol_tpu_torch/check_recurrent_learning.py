@@ -17,7 +17,9 @@ a cross-seed league. Every match runs through the carry-threading
 ``evaluate.evaluate_recurrent`` (the plain env, one batched step at a
 time), the opponent a second recurrent model where it is a trained one.
 Training collects on the plain loop, or with ``--fused-collect`` on the
-``fused_recurrent_collect`` kernel.
+``fused_recurrent_collect`` kernel, in the route ``--collect-dtype``
+names (``a2c.FUSED_COLLECT_DTYPE`` per algorithm by default; the plain
+loop is float32 only).
 
 Finished seeds persist under ``--out-dir`` and a call may train at most
 ``--max-new-seeds`` of them, as in :mod:`.check_learning`: a call that
@@ -67,6 +69,8 @@ PPT_DEFAULTS = {
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    from .a2c import FUSED_COLLECT_DTYPE
+
     ap = argparse.ArgumentParser(
         prog="python -m gym_futbol_tpu_torch.check_recurrent_learning",
         description="3-seed learning gate of the LSTM learners")
@@ -82,7 +86,19 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--eval-envs", type=int, default=2048)
     ap.add_argument("--fused-collect", action="store_true",
                     help="collect on the fused_recurrent_collect kernel")
+    ap.add_argument("--collect-dtype", choices=("bfloat16", "float32"),
+                    default=None,
+                    help="the fused collect's route: bfloat16 (tensor cores) "
+                         "or float32 (exact); default per --algo, "
+                         f"{FUSED_COLLECT_DTYPE}; the plain collect is "
+                         "float32")
     args = ap.parse_args(argv)
+    if args.collect_dtype is None:
+        args.collect_dtype = (FUSED_COLLECT_DTYPE[args.algo]
+                              if args.fused_collect else "float32")
+    elif not args.fused_collect and args.collect_dtype != "float32":
+        ap.error(f"--collect-dtype {args.collect_dtype} needs --fused-collect "
+                 "(the plain collect is float32)")
     defaults = PPT_DEFAULTS.get(args.ppt, PPT_DEFAULTS[2])
     if args.envs is None:
         args.envs = defaults["envs"]
@@ -118,8 +134,10 @@ def main(argv: list[str] | None = None) -> int:
         return RecurrentActorCritic(args.ppt, f, tuple(args.hidden),
                                     args.lstm_size, device=device)
 
-    collect_fn = (a2c.collect_recurrent_rollout_fused if args.fused_collect
-                  else a2c.collect_recurrent_rollout)
+    collect_fn = (functools.partial(
+        a2c.collect_recurrent_rollout_fused,
+        compute_dtype=getattr(torch, args.collect_dtype))
+        if args.fused_collect else a2c.collect_recurrent_rollout)
     if args.algo == "a2c":
         cfg = a2c.A2CConfig(rollout_steps=args.rollout_steps, lr=args.lr,
                             ent_coef=args.ent_coef)
@@ -166,7 +184,8 @@ def main(argv: list[str] | None = None) -> int:
     stem = f"ppt{args.ppt}_{args.algo}"
     store = SeedStore(args.out_dir, f"recurrent_{stem}", f"recurrent_curve_{stem}",
                       seed_flags(args, _SEED_FLAGS + (
-                          "algo", "lstm_size", "fused_collect")))
+                          "algo", "lstm_size", "fused_collect",
+                          "collect_dtype")))
     done = run_seeds(args, store, run_one)
     if done is None:
         return 2
@@ -189,7 +208,8 @@ def main(argv: list[str] | None = None) -> int:
                      "envs": args.envs, "lstm_size": args.lstm_size,
                      "hidden": args.hidden, "rollout_steps": args.rollout_steps,
                      "max_steps": args.max_steps,
-                     "fused_collect": args.fused_collect})
+                     "fused_collect": args.fused_collect,
+                     "collect_dtype": args.collect_dtype})
     print(json.dumps(out), flush=True)
     return 0 if out["ok"] else 1
 

@@ -2,19 +2,30 @@
 rewards.
 
 Counterpart of :mod:`gym_futbol_tpu.game`, whose module docstring holds
-the normative ACTION and GOAL specs. Every function here is branch-free
-and in scalar-SSA form: per-body and per-player quantities are ``[B]``
-tensors in Python lists. Selections by a dynamic index (the owner's
-position, action or direction) are chains of ``torch.where`` over the
-static indices, never a gather, so an out-of-range action int decodes
-as the JAX package decodes it (direction (0, 0), a plain move).
+the normative ACTION and GOAL specs. Every function here is branch-free.
+The ``*_scalars`` forms, which the env step runs, take per-body and
+per-player quantities as ``[B]`` tensors in Python lists. Selections by
+a dynamic index (the owner's position, action or direction) are chains
+of ``torch.where`` over the static indices, never a gather, so an
+out-of-range action int decodes as the JAX package decodes it
+(direction (0, 0), a plain move).
+
+The array forms (:func:`decode_forces`, :func:`update_possession`,
+:func:`apply_kick`, :func:`apply_dribble`, :func:`detect_goal`,
+:func:`clamp_oob`, :func:`kickoff_positions`, :func:`shaped_rewards`)
+are the JAX package's per-env API under its names and argument orders,
+each a wrapper over its scalar form: positions and velocities ``[...,
+n_bodies, 2]``, actions ``[..., n_players, 2]``, possession ``[...]``.
+One env (no leading dims) and any batch go through the same code, and
+the results have JAX's shapes with the batch dims in front. Where JAX
+draws from a key, these take the drawn noise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .physics import dtype_scalar, to_dtype
+from .physics import dtype_scalar, split_xy, stack_xy, to_dtype
 from .types import EnvParams
 
 ACT_NOOP, ACT_DASH, ACT_PRESS, ACT_PASS, ACT_SHOOT = 0, 1, 2, 3, 4
@@ -55,11 +66,19 @@ def decode_forces_scalars(
 
 
 def split_actions(actions: torch.Tensor, params: EnvParams) -> tuple[list, list]:
-    """``[B, n_players, 2]`` action tensor -> (dirs, acts) per-player lists."""
+    """``[..., n_players, 2]`` action tensor -> (dirs, acts) per-player
+    lists of ``[...]`` tensors."""
     n_players = params.n_players
-    dirs = [actions[:, p, 0] for p in range(n_players)]
-    acts = [actions[:, p, 1] for p in range(n_players)]
+    dirs = [actions[..., p, 0] for p in range(n_players)]
+    acts = [actions[..., p, 1] for p in range(n_players)]
     return dirs, acts
+
+
+def decode_forces(actions: torch.Tensor, params: EnvParams, dtype) -> torch.Tensor:
+    """``[..., n_players, 2]`` int actions -> ``[..., n_bodies, 2]`` forces
+    (the ball's row zero). Array form of :func:`decode_forces_scalars`."""
+    return stack_xy(*decode_forces_scalars(*split_actions(actions, params),
+                                           params, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +127,16 @@ def update_possession_scalars(
         )
     keep = torch.where((possession > 0) & (owner_within > 0), possession, -1)
     return torch.where(any_bid, bid_winner, keep)
+
+
+def update_possession(state_pos: torch.Tensor, possession: torch.Tensor,
+                      actions: torch.Tensor, params: EnvParams) -> torch.Tensor:
+    """The new owner ``[...]`` (int32, -1 loose) from positions ``[...,
+    n_bodies, 2]``, the owner ``[...]`` and actions ``[..., n_players,
+    2]``. Array form of :func:`update_possession_scalars`."""
+    _, acts = split_actions(actions, params)
+    return update_possession_scalars(*split_xy(state_pos), possession, acts,
+                                     params, state_pos.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +225,26 @@ def apply_kick_scalars(
     return dvx, dvy, possession
 
 
+def apply_kick(pos: torch.Tensor, vel: torch.Tensor, possession: torch.Tensor,
+               actions: torch.Tensor, theta: torch.Tensor, params: EnvParams
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The owner's pass/shoot: returns (``vel`` with the kick's impulse
+    added to the ball's row, the new possession). ``theta`` is the kick's
+    drawn angular noise ``[...]`` (in place of JAX's key): a standard
+    normal already scaled by ``params.kick_noise``. Array form of
+    :func:`apply_kick_scalars`."""
+    dtype = pos.dtype
+    px, py = split_xy(pos)
+    vx, vy = split_xy(vel)
+    _, acts = split_actions(actions, params)
+    dvx, dvy, possession = apply_kick_scalars(px, py, vx, vy, possession, acts,
+                                              theta, params, dtype)
+    vel = vel.clone()
+    vel[..., 0, 0] = vx[0] + dvx
+    vel[..., 0, 1] = vy[0] + dvy
+    return vel, possession
+
+
 # ---------------------------------------------------------------------------
 # Dribble coupling
 # ---------------------------------------------------------------------------
@@ -241,6 +290,20 @@ def apply_dribble_scalars(
     return ball_px, ball_py, ball_vx, ball_vy
 
 
+def apply_dribble(pos: torch.Tensor, vel: torch.Tensor, possession: torch.Tensor,
+                  actions: torch.Tensor, params: EnvParams
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Carry the ball with its owner: (pos, vel) with the ball's rows
+    replaced. Array form of :func:`apply_dribble_scalars`."""
+    dirs, _ = split_actions(actions, params)
+    bpx, bpy, bvx, bvy = apply_dribble_scalars(
+        *split_xy(pos), *split_xy(vel), possession, dirs, params, pos.dtype)
+    pos, vel = pos.clone(), vel.clone()
+    pos[..., 0, 0], pos[..., 0, 1] = bpx, bpy
+    vel[..., 0, 0], vel[..., 0, 1] = bvx, bvy
+    return pos, vel
+
+
 # ---------------------------------------------------------------------------
 # Goals, out of bounds, kickoff
 # ---------------------------------------------------------------------------
@@ -257,6 +320,14 @@ def detect_goal_scalars(
     g0 = (ball_x > to_dtype(params.width, dtype)) & in_mouth
     g1 = (ball_x < 0.0) & in_mouth
     return g0, g1
+
+
+def detect_goal(pos: torch.Tensor, params: EnvParams) -> torch.Tensor:
+    """``[..., 2]`` bool: a goal by team 0 (the ball past the right line
+    in the mouth), by team 1 (the left). Array form of
+    :func:`detect_goal_scalars`."""
+    return torch.stack(detect_goal_scalars(pos[..., 0, 0], pos[..., 0, 1],
+                                           params), -1)
 
 
 def clamp_oob_scalars(
@@ -290,6 +361,16 @@ def clamp_oob_scalars(
     return px, py, vx, vy, ball_was_clamped
 
 
+def clamp_oob(pos: torch.Tensor, vel: torch.Tensor, params: EnvParams
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Clamp bodies into the field (the ball free in x inside the goal
+    mouth): returns (pos, vel, ball_was_clamped ``[...]``). Array form of
+    :func:`clamp_oob_scalars`."""
+    px, py, vx, vy, ball_was_clamped = clamp_oob_scalars(
+        *split_xy(pos), *split_xy(vel), params, pos.dtype)
+    return stack_xy(px, py), stack_xy(vx, vy), ball_was_clamped
+
+
 def kickoff_scalars(
     noise_x: list, noise_y: list, params: EnvParams, dtype
 ) -> tuple[list, list]:
@@ -310,6 +391,16 @@ def kickoff_scalars(
             px.append(to_dtype(base_x, dtype) + noise_x[b] * amp)
             py.append(to_dtype(y0, dtype) + noise_y[b] * amp)
     return px, py
+
+
+def kickoff_positions(noise: torch.Tensor, params: EnvParams,
+                      dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kickoff placement: (pos ``[..., n_bodies, 2]``, zero velocities).
+    ``noise`` is the drawn per-body uniforms in [-1, 1] ``[..., n_bodies,
+    2]``, x then y (in place of JAX's key). Array form of
+    :func:`kickoff_scalars`."""
+    pos = stack_xy(*kickoff_scalars(*split_xy(noise), params, dtype))
+    return pos, torch.zeros_like(pos)
 
 
 # ---------------------------------------------------------------------------
@@ -373,3 +464,17 @@ def shaped_rewards_scalars(
             ball_clamped, _full(like, to_dtype(rc.oob_penalty, dtype)), 0.0)
         rews.append(r)
     return rews[0], rews[1]
+
+
+def shaped_rewards(pos_before: torch.Tensor, pos_after: torch.Tensor,
+                   possession: torch.Tensor, goals: torch.Tensor,
+                   ball_clamped: torch.Tensor, params: EnvParams) -> torch.Tensor:
+    """``[..., 2]`` per-team shaped reward from the positions before and
+    after the step ``[..., n_bodies, 2]``, the owner, ``goals`` ``[...,
+    2]`` and ``ball_clamped`` ``[...]``. Array form of
+    :func:`shaped_rewards_scalars`."""
+    px0, py0 = split_xy(pos_before)
+    px1, py1 = split_xy(pos_after)
+    return torch.stack(shaped_rewards_scalars(
+        px0, py0, px1, py1, possession, goals[..., 0], goals[..., 1],
+        ball_clamped, params, pos_before.dtype), -1)

@@ -117,35 +117,51 @@ def _wall_active(d: torch.Tensor) -> torch.Tensor:
 
 
 def _contact_setup(px: list, py: list, vx: list, vy: list, params: EnvParams,
-                   dtype) -> SimpleNamespace:
+                   dtype, bodies=None) -> SimpleNamespace:
     """Spec items 2-3's per-substep set-up in scalar-SSA form: per pair
     (lexicographic order) its normal, the normals premultiplied by each
     body's inverse mass, -k_n and ``bmv`` (bounce - v_bias, or the 1e20
     inactive sentinel); per wall [bottom, top, left, right] and body its
     ``wn`` (v_bias - bounce, or -1e20); and the activity masks ``pair_on``
-    and ``wall_on`` that chose between them."""
+    and ``wall_on`` that chose between them.
+
+    The per-body inverse masses, radii and elasticities are ``params``'
+    (ball first, then players) unless ``bodies`` gives them as three
+    per-body lists; the pair and wall constants are then formed from
+    them in ``dtype`` as :func:`physics_constants` forms its own."""
     c = physics_constants(params, dtype)
     n = len(px)
     pairs = circle_pairs(n)
-    inv_m = [c.inv_m_ball] + [c.inv_m_player] * (n - 1)
-    radii = [c.r_ball] + [c.r_player] * (n - 1)
+    if bodies is None:
+        inv_m = [c.inv_m_ball] + [c.inv_m_player] * (n - 1)
+        radii = [c.r_ball] + [c.r_player] * (n - 1)
+        rr = [c.rr_bp if i == 0 else c.rr_pp for i, _ in pairs]
+        e_pair = [c.e_bp if i == 0 else c.e_pp for i, _ in pairs]
+        nkn = [c.nkn_bp if i == 0 else c.nkn_pp for i, _ in pairs]
+        e_wall = [c.ew_ball] + [c.ew_player] * (n - 1)
+    else:
+        inv_m, radii, elas = bodies
+        wall_e = to_dtype(params.wall_elasticity, dtype)
+        rr = [radii[i] + radii[j] for i, j in pairs]
+        e_pair = [elas[i] * elas[j] for i, j in pairs]
+        nkn = [-(1.0 / (inv_m[i] + inv_m[j])) for i, j in pairs]
+        e_wall = [e * wall_e for e in elas]
 
     # ---- circle-circle precompute (hot-form, spec item 3) ----------------
     k = SimpleNamespace(pairs=pairs, nx=[], ny=[], nxi=[], nyi=[], nxj=[], nyj=[],
                         nkn=[], bmv=[], pair_on=[], wn=[[None] * n for _ in range(4)],
                         wall_on=[[None] * n for _ in range(4)])
-    for (i, j) in pairs:
+    for p, (i, j) in enumerate(pairs):
         dpx = px[j] - px[i]
         dpy = py[j] - py[i]
         d2 = dpx * dpx + dpy * dpy
         inv_d = _rsqrt(d2.clamp_min(_EPS2))
         dist = d2 * inv_d
-        pen = (c.rr_bp if i == 0 else c.rr_pp) - dist
+        pen = rr[p] - dist
         nx = dpx * inv_d
         ny = dpy * inv_d
         vrn0 = (vx[j] - vx[i]) * nx + (vy[j] - vy[i]) * ny
-        e = c.e_bp if i == 0 else c.e_pp
-        bounce = e * vrn0.clamp_max(0.0)
+        bounce = e_pair[p] * vrn0.clamp_max(0.0)
         vbias = c.bias_coef * (pen - c.slop).clamp_min(0.0)
         on = _pair_active(pen)
         k.nx.append(nx)
@@ -154,7 +170,7 @@ def _contact_setup(px: list, py: list, vx: list, vy: list, params: EnvParams,
         k.nyi.append(ny * inv_m[i])
         k.nxj.append(nx * inv_m[j])
         k.nyj.append(ny * inv_m[j])
-        k.nkn.append(c.nkn_bp if i == 0 else c.nkn_pp)
+        k.nkn.append(nkn[p])
         k.bmv.append(torch.where(on, bounce - vbias, _BIG))
         k.pair_on.append(on)
 
@@ -171,7 +187,7 @@ def _contact_setup(px: list, py: list, vx: list, vy: list, params: EnvParams,
             in_mouth = (py[0] >= c.goal_y_lo) & (py[0] <= c.goal_y_hi)
             d[2] = torch.where(in_mouth, -1.0, d[2])
             d[3] = torch.where(in_mouth, -1.0, d[3])
-        e_w = c.ew_ball if i == 0 else c.ew_player
+        e_w = e_wall[i]
         vrn0_w = [vy[i], -vy[i], vx[i], -vx[i]]
         for wi in range(4):
             wbounce = e_w * vrn0_w[wi].clamp_max(0.0)
@@ -259,11 +275,14 @@ def _wall_update(k: SimpleNamespace, wi: int, i: int, vx: list, vy: list, jv, jt
 
 def _solve_contacts_scalar(
     px: list, py: list, vx: list, vy: list, params: EnvParams, dtype,
+    bodies=None,
 ) -> tuple[list, list]:
-    """Spec items 2-3 in scalar-SSA form: returns post-solve (vx, vy)."""
+    """Spec items 2-3 in scalar-SSA form: returns post-solve (vx, vy).
+    ``bodies``: optional per-body (inverse masses, radii, elasticities),
+    as :func:`_contact_setup` takes them."""
     mu = physics_constants(params, dtype).mu
     n = len(px)
-    k = _contact_setup(px, py, vx, vy, params, dtype)
+    k = _contact_setup(px, py, vx, vy, params, dtype, bodies)
     vx, vy = list(vx), list(vy)
     zl = torch.zeros_like(vx[0])
     jn_cc = [zl] * len(k.pairs)
@@ -282,6 +301,23 @@ def _solve_contacts_scalar(
     return vx, vy
 
 
+def integrate_velocity_scalars(vx: list, vy: list, fx: list, fy: list,
+                               inv_m: list, damp, dt_sub, max_speed
+                               ) -> tuple[list, list]:
+    """Spec item 1 per body, in scalar-SSA form: ``v <- v * damp + f *
+    inv_m * dt_sub``, then the speed clamp ``v * min(1, max_speed *
+    1/sqrt(max(|v|^2, 1e-12)))``. Returns the new (vx, vy) lists."""
+    vx, vy = list(vx), list(vy)
+    for i in range(len(vx)):
+        nvx = vx[i] * damp + fx[i] * inv_m[i] * dt_sub
+        nvy = vy[i] * damp + fy[i] * inv_m[i] * dt_sub
+        s2 = nvx * nvx + nvy * nvy
+        scale = (max_speed * _rsqrt(s2.clamp_min(_EPS2))).clamp_max(1.0)
+        vx[i] = nvx * scale
+        vy[i] = nvy * scale
+    return vx, vy
+
+
 def physics_step_scalars(
     px: list, py: list, vx: list, vy: list, fx: list, fy: list,
     params: EnvParams, dtype,
@@ -294,13 +330,8 @@ def physics_step_scalars(
     px, py, vx, vy = list(px), list(py), list(vx), list(vy)
     for _ in range(params.substeps):
         # spec item 1: velocity integration + speed clamp
-        for i in range(n):
-            nvx = vx[i] * c.damp + fx[i] * inv_m[i] * c.dt_sub
-            nvy = vy[i] * c.damp + fy[i] * inv_m[i] * c.dt_sub
-            s2 = nvx * nvx + nvy * nvy
-            scale = (c.max_speed * _rsqrt(s2.clamp_min(_EPS2))).clamp_max(1.0)
-            vx[i] = nvx * scale
-            vy[i] = nvy * scale
+        vx, vy = integrate_velocity_scalars(vx, vy, fx, fy, inv_m, c.damp,
+                                            c.dt_sub, c.max_speed)
         # spec items 2-3: contacts
         vx, vy = _solve_contacts_scalar(px, py, vx, vy, params, dtype)
         # spec item 4: position integration
@@ -329,3 +360,52 @@ def physics_step(
     pos = torch.stack([torch.stack(px, 1), torch.stack(py, 1)], -1)
     vel = torch.stack([torch.stack(vx, 1), torch.stack(vy, 1)], -1)
     return pos, vel
+
+
+# ---------------------------------------------------------------------------
+# Array form: the JAX package's per-env API, on [..., n_bodies, 2] tensors
+# ---------------------------------------------------------------------------
+
+
+def split_xy(a: torch.Tensor) -> tuple[list, list]:
+    """``[..., N, 2]`` -> per-body (x, y) lists of ``[...]`` tensors."""
+    n = a.shape[-2]
+    return [a[..., i, 0] for i in range(n)], [a[..., i, 1] for i in range(n)]
+
+
+def stack_xy(x: list, y: list) -> torch.Tensor:
+    """Per-body (x, y) lists of ``[...]`` tensors -> ``[..., N, 2]``."""
+    return torch.stack([torch.stack(x, -1), torch.stack(y, -1)], -1)
+
+
+def integrate_velocity(
+    vel: torch.Tensor, forces: torch.Tensor, inv_mass: torch.Tensor,
+    params: EnvParams, dt_sub: float,
+) -> torch.Tensor:
+    """Spec item 1 over one sub-step of ``dt_sub``: ``vel``/``forces``
+    ``[..., N, 2]``, ``inv_mass`` ``[N]`` (or ``[..., N]``). Returns the
+    new velocities ``[..., N, 2]``. Array wrapper over
+    :func:`integrate_velocity_scalars`."""
+    dtype = vel.dtype
+    damp = (dtype_scalar(params.damping, dtype)
+            ** dtype_scalar(dt_sub, dtype)).item()
+    n = vel.shape[-2]
+    vx, vy = integrate_velocity_scalars(
+        *split_xy(vel), *split_xy(forces), [inv_mass[..., i] for i in range(n)],
+        damp, to_dtype(dt_sub, dtype), to_dtype(params.max_speed, dtype))
+    return stack_xy(vx, vy)
+
+
+def solve_contacts(
+    pos: torch.Tensor, vel: torch.Tensor, params: EnvParams,
+    inv_mass: torch.Tensor, radii: torch.Tensor, elas: torch.Tensor,
+) -> torch.Tensor:
+    """Spec items 2-3: the post-solve velocities ``[..., N, 2]`` of bodies
+    at ``pos`` with ``vel`` (``[..., N, 2]``), their inverse masses, radii
+    and elasticities ``[N]`` (or ``[..., N]``; ``types.body_masses`` and
+    friends give the env's). Array wrapper over the scalar-SSA solve."""
+    n = pos.shape[-2]
+    bodies = tuple([a[..., i] for i in range(n)] for a in (inv_mass, radii, elas))
+    vx, vy = _solve_contacts_scalar(*split_xy(pos), *split_xy(vel), params,
+                                    vel.dtype, bodies)
+    return stack_xy(vx, vy)

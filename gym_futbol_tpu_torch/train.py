@@ -193,8 +193,10 @@ def _run(args):
     if args.recurrent:
         model = RecurrentActorCritic(args.ppt, f, tuple(args.hidden),
                                      args.lstm_size, device=device)
-        collect_fn = (a2c.collect_recurrent_rollout_fused if args.fused_collect
-                      else a2c.collect_recurrent_rollout)
+        collect_fn = (functools.partial(
+            a2c.collect_recurrent_rollout_fused, compute_dtype=getattr(
+                torch, a2c.FUSED_COLLECT_DTYPE[args.algo]))
+            if args.fused_collect else a2c.collect_recurrent_rollout)
     else:
         model = ActorCritic(args.ppt, f, tuple(args.hidden), device=device)
         collect_fn = (ppo.collect_rollout_fused if args.fused_collect

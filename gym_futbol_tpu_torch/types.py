@@ -138,3 +138,38 @@ class StepOutput:
     team_reward: torch.Tensor  # [B, 2] float, per-team shaped reward
     done: torch.Tensor         # [B] bool
     info: dict[str, torch.Tensor]
+
+
+def _per_body(params: EnvParams, ball: float, player: float, dtype,
+              device) -> torch.Tensor:
+    return torch.tensor([ball] + [player] * params.n_players, dtype=dtype,
+                        device=device)
+
+
+def body_masses(params: EnvParams, dtype=torch.float32,
+                device: torch.device | str | None = None) -> torch.Tensor:
+    """``[n_bodies]`` masses: ball first, then players."""
+    return _per_body(params, params.ball_mass, params.player_mass, dtype, device)
+
+
+def body_radii(params: EnvParams, dtype=torch.float32,
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """``[n_bodies]`` radii: ball first, then players."""
+    return _per_body(params, params.ball_radius, params.player_radius, dtype,
+                     device)
+
+
+def body_elasticities(params: EnvParams, dtype=torch.float32,
+                      device: torch.device | str | None = None) -> torch.Tensor:
+    """``[n_bodies]`` per-shape elasticities (a pair's restitution is the
+    product of its two, the Chipmunk rule)."""
+    return _per_body(params, params.ball_elasticity, params.player_elasticity,
+                     dtype, device)
+
+
+def team_of_body(params: EnvParams,
+                 device: torch.device | str | None = None) -> torch.Tensor:
+    """``[n_bodies]`` int32: -1 for the ball, 0 / 1 for the players."""
+    ppt = params.players_per_team
+    return torch.tensor([-1] + [0] * ppt + [1] * ppt, dtype=torch.int32,
+                        device=device)

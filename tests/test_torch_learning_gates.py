@@ -300,6 +300,64 @@ def test_recurrent_refuses_a_record_of_other_flags(tmp_path):
         rgate.main([*argv, "--lstm-size", "4"])
 
 
+def _spy_collect_dtype(monkeypatch):
+    """The route each fused recurrent collect call takes, recorded (the
+    CPU path: K5's plain version in that dtype, no launch)."""
+    seen = []
+    real = ta2c.collect_recurrent_rollout_fused
+
+    def spy(*args, compute_dtype=torch.bfloat16, **kw):
+        seen.append(compute_dtype)
+        return real(*args, compute_dtype=compute_dtype, **kw)
+
+    monkeypatch.setattr(ta2c, "collect_recurrent_rollout_fused", spy)
+    return seen
+
+
+def test_recurrent_gate_collect_dtype(monkeypatch, tmp_path):
+    """--collect-dtype reaches the fused collect and is among a seed's
+    flags, so a stored seed trained on the other route is refused; the
+    default follows ``a2c.FUSED_COLLECT_DTYPE`` per algorithm, float32 on
+    the plain collect, which takes nothing else."""
+    seen = _spy_collect_dtype(monkeypatch)
+    argv = RECURRENT_ARGV + ["--algo", "a2c", "--seeds", "1", "--no-league",
+                             "--out-dir", str(tmp_path)]
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rgate.main(argv + ["--collect-dtype", "float32"])
+    assert seen == [torch.float32] * 3
+    last = json.loads(buf.getvalue().splitlines()[-1])
+    assert last["hyperparams"]["collect_dtype"] == "float32"
+    saved = json.loads((tmp_path / "recurrent_ppt1_a2c_seed0.json").read_text())
+    assert saved["flags"]["--collect-dtype"] == "float32"
+    with pytest.raises(SystemExit, match="--collect-dtype 'float32' there, "
+                                         "'bfloat16' here"):
+        rgate.main(argv + ["--collect-dtype", "bfloat16"])
+    for algo in ("a2c", "ppo"):
+        args = rgate.parse_args(["--algo", algo, "--fused-collect"])
+        assert args.collect_dtype == ta2c.FUSED_COLLECT_DTYPE[algo]
+        assert rgate.parse_args(["--algo", algo]).collect_dtype == "float32"
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        with pytest.raises(SystemExit) as e:
+            rgate.parse_args(["--algo", "a2c", "--collect-dtype", "bfloat16"])
+    assert e.value.code == 2 and "needs --fused-collect" in err.getvalue()
+
+
+@pytest.mark.parametrize("algo", ["a2c", "ppo"])
+def test_cli_recurrent_fused_collect_route(monkeypatch, algo):
+    """``train --recurrent --algo {a2c,ppo} --fused-collect`` collects on
+    the route ``a2c.FUSED_COLLECT_DTYPE`` names for the algorithm, as the
+    gate does by default."""
+    seen = _spy_collect_dtype(monkeypatch)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ttrain.main(["--device", "cpu", "--recurrent", "--algo", algo,
+                     "--fused-collect", "--ppt", "1", "--iters", "1", "--envs",
+                     "8", "--hidden", "16", "--lstm-size", "8", "--max-steps",
+                     "12"])
+    assert seen == [getattr(torch, ta2c.FUSED_COLLECT_DTYPE[algo])]
+    # A2C on K5's exact route, PPO on its tensor cores
+    assert ta2c.FUSED_COLLECT_DTYPE == {"a2c": "float32", "ppo": "bfloat16"}
+
+
 @pytest.mark.parametrize("norm", [False, True], ids=["plain", "normalize"])
 def test_seed_training_equals_cli(mlp_runs, tmp_path, norm):
     """Seed 0's final and 1/3 snapshots (iterations 3 and 1 of 3) equal
@@ -850,8 +908,11 @@ def test_recurrent_gate_matches_jax_gate(monkeypatch, tmp_path, case):
     jt, pt = tables["jax"], tables["port"]
     assert pt.calls == jt.calls and pt.anneal == jt.anneal and pt.fns == jt.fns
     assert _seed_records(plines) == _seed_records(jlines)
-    _compare_last_lines(jl, pl, {"max_steps": 300,
-                                 "fused_collect": "--fused-collect" in argv})
+    fused = "--fused-collect" in argv
+    _compare_last_lines(jl, pl, {
+        "max_steps": 300, "fused_collect": fused,
+        "collect_dtype": (ta2c.FUSED_COLLECT_DTYPE[jl["hyperparams"]["algo"]]
+                          if fused else "float32")})
     assert prc == jrc == (0 if jl["ok"] else 1)
     if ok is not None:
         assert jl["ok"] is ok
