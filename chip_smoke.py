@@ -6,7 +6,11 @@ holds each against its plain PyTorch version on the card, and drives the
 port's main paths:
 - phases 3-6, the random-policy rollout (fused_rollout,
   fused_rollout_replay): 4096 2v2 envs for 512 steps (bench config 3),
-  a replay of given actions, and one 5v5 rollout of 65536 envs;
+  a replay of given actions (held bitwise to its plain version at 2v2,
+  custom params, 3v3 and 5v5), and one 5v5 rollout of 65536 envs; the
+  replay timed at 2v2 with 4096 envs (T=16 and 128), 3v3 with 16384 and
+  5v5 with 65536 by its plan and with every other lane count, beside
+  its bound;
 - phases 7-10, the self-play policy path (fused_collect,
   fused_selfplay_rollout) in both routes, bfloat16 on the tensor cores
   (the main path's) and float32 on the CUDA cores (exact): table- and
@@ -85,8 +89,9 @@ port's main paths:
   rollout), each function bitwise equal to its scalar form.
 Phase 6 also measures the contact solver's active share (the pairs and
 walls the culled env step updates) at config 3, the 5v5 scale and config
-4, and the env step's operation count, and so every bound that counts
-it, uses that share.
+4, with the replay's solver slots per warp beside the warp union, and
+the env step's operation count, and so every bound that counts it, uses
+that share.
 One line per phase; any failed phase exits nonzero with no result line.
 The last two lines are the kernels' record and ``{"ok": true, "device":
 {...}}``. Each kernel's ``bound_ms`` is the least time the card could
@@ -219,9 +224,10 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def compare(kernel_out, plain_out, label: str) -> float:
+def compare(kernel_out, plain_out, label: str, exact: bool = False) -> float:
     """Kernel vs plain outputs (statef, statei, rewards); returns the
-    largest absolute float difference."""
+    largest absolute float difference. ``exact``: bitwise equality is
+    required (signed zeros compare equal)."""
     import torch
 
     ksf, ksi, krew = kernel_out
@@ -241,6 +247,7 @@ def compare(kernel_out, plain_out, label: str) -> float:
           f"max |reward err| {err_rew.max().item():.3g}, integers equal "
           f"{ok_int}, bitwise {bitwise}")
     check(ok_sf and ok_rew and ok_int, f"{label}: kernel disagrees with plain")
+    check(bitwise or not exact, f"{label}: kernel not bitwise equal to plain")
     return err
 
 
@@ -2731,6 +2738,62 @@ def array_api_phase(dev, params, sf, si) -> None:
           f"kicks) in {time.perf_counter() - t0:.1f} s")
 
 
+def replay_phase(dev, shares: dict) -> list[dict]:
+    """Phase 6's replay rows: K1b (fused_rollout_replay) at each shape of
+    replay_timing.SHAPES on its game states, by its plan and with the plan
+    forced to each other lane count G (the plan's threads a block, lowered
+    to fit; G = 0, one thread per env, PR 12's design, at its 32), ms per
+    step in turns (plan, others, plan), beside the bound
+    per step at phase 6's active share of the same team size (the state
+    read and written once per call, the actions and rewards once; the env
+    step's operations, env_step_ops); each shape's launches counted."""
+    from gym_futbol_tpu_torch import EnvParams, ops, replay_timing
+
+    # the module (ops/__init__ shadows its name with the function)
+    fr = importlib.import_module("gym_futbol_tpu_torch.ops.fused_rollout")
+    rows = []
+    own = fr.replay_plan
+    for ppt, n_envs, n_steps in replay_timing.SHAPES:
+        params = EnvParams(players_per_team=ppt)
+        sf, si, acts = replay_timing.replay_inputs(params, n_envs, n_steps, 5, dev)
+        plan = own(params, n_envs)
+        before = ops.LAUNCHES["fused_rollout_replay"]
+        first = replay_timing.time_replay(sf, si, acts, params, 10)
+        others = {}
+        for g in (0, 2, 4, 8):
+            if g == plan["lanes"]:
+                continue
+            # G = 0: one thread per env, PR 12's design and block
+            fr.replay_plan = replay_timing.forced_plan(
+                fr, g, 32 if g == 0 else plan["threads"])
+            try:
+                threads = fr.replay_plan(params, n_envs)["threads"]
+                others[f"G={g},{threads}"] = replay_timing.time_replay(
+                    sf, si, acts, params, 10) / n_steps
+            finally:
+                fr.replay_plan = own
+        last = replay_timing.time_replay(sf, si, acts, params, 10)
+        launches = ops.LAUNCHES["fused_rollout_replay"] - before
+        check(launches == 11 * (2 + len(others)), f"6: replay launches at {ppt}v{ppt}")
+        sh = shares[f"{ppt}v{ppt}"]
+        b = bound((2 * nbytes(sf, si) + nbytes(acts)) / n_steps + n_envs * 4,
+                  n_envs * env_step_ops(params, sh))
+        ms = min(first, last) / n_steps
+        rows.append({"shape": f"{ppt}v{ppt}", "n_envs": n_envs, "T": n_steps,
+                     "lanes": plan["lanes"], "threads": plan["threads"],
+                     "ms": ms, "ms_turns": [first / n_steps, last / n_steps],
+                     "pr12_design_ms": others.get("G=0,32"),
+                     "bound_ms": b[0], "bound_by": b[1], "others_ms": others,
+                     "launches": launches})
+        phase("6 replay", f"fused_rollout_replay {ppt}v{ppt} B={n_envs} T={n_steps}, "
+              f"plan G={plan['lanes']} x {plan['threads']} threads: {ms:.6g} ms/step "
+              f"(turns {first / n_steps:.6g}, {last / n_steps:.6g}), bound {b[0]:.6g} "
+              f"({b[1]}), {b[0] / ms:.3%} of it; other G, ms/step: "
+              + ", ".join(f"{k} {v:.6g}" for k, v in others.items())
+              + f"; {launches} launches")
+    return rows
+
+
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (the share of its wall
     time the device was busy, the wall ms, [(kernel, launches, device
@@ -2796,14 +2859,17 @@ def env_step_ops(params, shares=None) -> int:
                                     + 20 * pairs + 40 * nb))
 
 
-def active_shares(params, sf, si, n_steps: int, seed: int) -> dict:
+def active_shares(params, sf, si, n_steps: int, seed: int, lanes: int = 1) -> dict:
     """The contact solver's active share on a state, measured with the
     plain version on the card (fused_rollout_reference, ``n_steps``
     random-policy steps, Philox ``seed``) by wrapping its activity tests
     (physics._pair_active, _wall_active): per substep, the mean number of
-    active pairs and (wall, body) constraints per env, and per group of 32
-    consecutive envs (a warp of the kernels) the mean number active in any
-    env of the group, which is what the culled kernels run."""
+    active pairs and (wall, body) constraints per env; per group of 32
+    consecutive envs (a warp of the one-thread-per-env kernels) the mean
+    number active in any env of the group, which the warp-union sweep
+    runs; and per group of 32 / ``lanes`` envs (a warp of the replay
+    kernel at ``lanes`` per env) the mean of the longest env's count,
+    the slots its per-env lists walk."""
     import torch
 
     from gym_futbol_tpu_torch import physics
@@ -2836,13 +2902,22 @@ def active_shares(params, sf, si, n_steps: int, seed: int) -> dict:
             m.shape[0], -1, 32).any(2)
         out[f"{key}_env"] = m.double().sum().item() / (substeps * b)
         out[f"{key}_warp"] = warp.double().sum().item() / (substeps * warp.shape[1])
+        per_env = m.reshape(substeps, n, b).sum(1)         # [substeps, B]
+        per_warp = 32 // lanes if lanes else 32   # lanes 0: the union runs
+        slots = torch.nn.functional.pad(per_env, (0, (-b) % per_warp)).reshape(
+            substeps, -1, per_warp).max(2).values
+        out[f"{key}_slots"] = slots.double().mean().item()
+    out["lanes"] = lanes
     return out
 
 
 def shares_text(sh: dict) -> str:
     return (f"per env and substep {sh['pairs_env']:.4g} of {sh['n_pairs']} pairs, "
             f"{sh['walls_env']:.4g} of {sh['n_walls']} walls active; union over each "
-            f"warp's 32 envs {sh['pairs_warp']:.4g} pairs, {sh['walls_warp']:.4g} walls")
+            f"warp's 32 envs {sh['pairs_warp']:.4g} pairs, {sh['walls_warp']:.4g} walls; "
+            f"per-env list slots per warp of the replay at G={sh['lanes']} "
+            f"({32 // max(sh['lanes'], 1)} envs a warp) {sh['pairs_slots']:.4g} pairs, "
+            f"{sh['walls_slots']:.4g} walls")
 
 
 def mlp_ops(weights) -> int:
@@ -2896,11 +2971,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from gym_futbol_tpu_torch import EnvParams, RewardConfig, ops, vector
+    from gym_futbol_tpu_torch import EnvParams, RewardConfig, ops, replay_timing, vector
     from gym_futbol_tpu_torch.ops import _build
     from gym_futbol_tpu_torch.ops.fused_rollout import (
         fused_rollout_reference,
         n_draws_per_step,
+        replay_plan,
     )
 
     dev = torch.device("cuda")
@@ -2954,17 +3030,26 @@ def main() -> int:
     p5 = EnvParams(players_per_team=5)
     errs = {"fused_rollout": 0.0, "fused_rollout_replay": 0.0}
 
-    # 3: replay parity, zero-noise params
-    for label, params in (("P", p_test),
-                          ("custom", custom.replace(kick_noise=0.0,
-                                                    placement_noise=0.0))):
-        sf, si, gen = start(params, B3, 1)
-        acts = replay_actions(params, gen, T_PARITY, B3)
+    # 3: replay parity, bitwise: zero-noise params from the kickoff; 3v3
+    # and 5v5 at their main batches from game states (replay_timing's
+    # inputs: 32 random-policy steps after a reset)
+    p4 = EnvParams(players_per_team=3)
+    for label, params, n_envs, n_steps in (
+            ("P", p_test, B3, T_PARITY),
+            ("custom", custom.replace(kick_noise=0.0, placement_noise=0.0), B3,
+             T_PARITY),
+            ("3v3", p4, B4, 4), ("5v5", p5, B5, 4)):
+        if params.players_per_team == 2:
+            sf, si, gen = start(params, n_envs, 1)
+            acts = replay_actions(params, gen, n_steps, n_envs)
+        else:
+            sf, si, acts = replay_timing.replay_inputs(params, n_envs, n_steps, 1, dev)
         got = ops.fused_rollout_replay(sf, si, acts, params)
         want = fused_rollout_reference(sf, si, params, actions=acts)
         errs["fused_rollout_replay"] = max(
             errs["fused_rollout_replay"],
-            compare(got, want, f"3 replay {label} B={B3} T={T_PARITY}"))
+            compare(got, want, f"3 replay {label} B={n_envs} T={n_steps}, "
+                    f"plan {replay_plan(params, n_envs)}", exact=True))
 
     # 4: table-mode parity, same uniforms to both
     for label, params, n_envs, n_steps in (
@@ -3073,7 +3158,6 @@ def main() -> int:
     # the contact solver's active share on game states of each main path's
     # scale (the work the culled kernels' inputs need): config 3's and the
     # 5v5 rollout's states from above, config 4's after 128 random steps
-    p4 = EnvParams(players_per_team=3)
     st4, _ = vector.reset_batch(gen, p4, 16384, device=dev)
     sf4, si4 = ops.pack_state(st4, p4)
     sf4, si4, _ = ops.fused_rollout(sf4, si4, 400, p4, 128)
@@ -3082,7 +3166,8 @@ def main() -> int:
             ("2v2", f"config 3 2v2 B={B3}", p3, sf, si),
             ("5v5", f"5v5 B={B5}", p5, sf5, si5),
             ("3v3", "config 4 3v3 B=16384 (random play)", p4, sf4, si4)):
-        shares[key] = active_shares(params, a, b, 2, 900)
+        shares[key] = active_shares(params, a, b, 2, 900,
+                                    replay_plan(params, a.shape[1])["lanes"])
         phase("6 active", f"{label}, plain version over 2 steps: "
               f"{shares_text(shares[key])}")
     # bounds per step: the state read and written once per call, rewards
@@ -3101,6 +3186,8 @@ def main() -> int:
           f"constraint: {env_step_ops(p3)} -> {bound_k1_all[0]:.6g}; 5v5: "
           f"{ops_k1_5} (every constraint {env_step_ops(p5)}) -> "
           f"{bound_k1_5[0]:.6g} ms/step")
+
+    replay_shapes = replay_phase(dev, shares)
 
     policy_record = policy_phases(dev, custom, shares)
     update_record, main12 = update_phases(dev, custom)
@@ -3132,7 +3219,7 @@ def main() -> int:
          "max_abs_err": errs["fused_rollout_replay"],
          "ms": ms_replay / T_PARITY, "plain_ms": plain_replay_ms / t_plain,
          "bound_ms": bound_k1b[0], "bound_by": bound_k1b[1], "library_ms": None,
-         "unit": per_step},
+         "unit": per_step, "shapes": replay_shapes},
         *policy_record,
         update_record,
         recurrent_record,

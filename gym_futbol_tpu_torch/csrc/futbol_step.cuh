@@ -34,7 +34,9 @@
 // bitwise (signed zeros compare equal). The branch is warp-uniform, so the
 // warp stays converged for the mma.sync of the kernels that inline the
 // step. step_dynamics' CULL parameter turns it off for a kernel that
-// measured slower with it (fused_policy_tc.cu's collect_tc_kernel).
+// measured slower with it (fused_policy_tc.cu's collect_tc_kernel). The
+// replay kernel replaces the physics (step_dynamics' Phys parameter) by
+// futbol_step_lanes.cuh's: G lanes per env and per-env contact lists.
 
 #pragma once
 
@@ -419,18 +421,32 @@ __device__ __forceinline__ float team_reward(const float (&px0)[NB],
   return r;
 }
 
+// Step 4 as one thread per env runs it: physics_step.
+template <int NB, bool CULL>
+struct SweepPhysics {
+  __device__ __forceinline__ void operator()(float (&px)[NB], float (&py)[NB],
+                                             float (&vx)[NB], float (&vy)[NB],
+                                             const float (&fx)[NB],
+                                             const float (&fy)[NB],
+                                             const Consts& c, const Ints& k) const {
+    physics_step<NB, CULL>(px, py, vx, vy, fx, fy, c, k);
+  }
+};
+
 // Steps 1-8 of the STEP ORDER: intent, physics, dribble, goals, bounds,
 // rewards. Returns the team-0 reward; sets the goal flags and the team-1
 // reward `r1` (dead code, removed by the compiler, where unused). The kick
 // angle comes from draws.kick_angle(), asked where some lane of the warp
-// kicks (EnvDraws or NoDraws). CULL: solve_contacts'.
-template <int NB, bool CULL = true, class Draws>
+// kicks (EnvDraws or NoDraws). CULL: solve_contacts'. `phys` runs step 4
+// (SweepPhysics, or futbol_step_lanes.cuh's LanePhysics).
+template <int NB, bool CULL = true, class Draws, class Phys = SweepPhysics<NB, CULL>>
 __device__ __forceinline__ float step_dynamics(Env<NB>& e,
                                                const int (&dirs)[NB - 1],
                                                const int (&acts)[NB - 1],
                                                const Draws& draws, const Consts& c,
                                                const Ints& k, bool& goal0,
-                                               bool& goal1, float& r1) {
+                                               bool& goal1, float& r1,
+                                               const Phys& phys = Phys()) {
   constexpr int NPL = NB - 1;
   constexpr int PPT = NPL / 2;
   float px0[NB], py0[NB];
@@ -547,7 +563,7 @@ __device__ __forceinline__ float step_dynamics(Env<NB>& e,
   }
 
   // 4: physics
-  physics_step<NB, CULL>(e.px, e.py, e.vx, e.vy, fx, fy, c, k);
+  phys(e.px, e.py, e.vx, e.vy, fx, fy, c, k);
 
   // 5: dribble carry
   {

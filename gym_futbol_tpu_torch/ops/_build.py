@@ -128,6 +128,7 @@ def load() -> ctypes.CDLL:
         i, i, i,              # n_bodies, B, T
         i, i, i,              # substeps, solver_iterations, max_steps
         f32p, i,              # host constants, count
+        i, i,                 # plan: lanes per env, threads per block
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_rollout_replay.restype = i

@@ -4,7 +4,8 @@ its plain PyTorch version.
 Counterpart of :mod:`gym_futbol_tpu.ops.fused_rollout`. The whole
 rollout (action sampling, kick and kickoff noise, the step pipeline of
 :func:`gym_futbol_tpu_torch.env.step_scalars` with auto-reset) runs in
-one launch of ``csrc/fused_rollout.cu``, one thread per env.
+one launch of ``csrc/fused_rollout.cu``, one thread per env; the
+replay's runs G lanes per env as :func:`replay_plan` lays it out.
 
 LAYOUT (the JAX package's, without its ``(B//128, 128)`` split):
 
@@ -19,6 +20,7 @@ kernel for CUDA tensors; ``LAUNCHES`` counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -334,10 +336,18 @@ def _kernel_args(statef, statei, params: EnvParams):
         raise ValueError("statef and statei must be contiguous")
     if statef.shape[1] == 0:
         raise ValueError("the batch must hold at least one env")
-    consts = kernel_constants(params)
-    c_consts = (ctypes.c_float * len(consts))(*consts.values())
     stream = torch.cuda.current_stream(statef.device).cuda_stream
-    return statef.shape[1], c_consts, stream
+    return statef.shape[1], _constants_array(params), stream
+
+
+@functools.lru_cache(maxsize=64)
+def _constants_array(params: EnvParams):
+    """:func:`kernel_constants` as the ctypes array a launch passes, formed
+    once per ``EnvParams`` (frozen, hashable): forming it takes longer on
+    the host than a short rollout on the card, and the C entries only
+    copy it."""
+    consts = kernel_constants(params)
+    return (ctypes.c_float * len(consts))(*consts.values())
 
 
 def _state_and_reward_out(statef, statei, n_steps: int):
@@ -388,6 +398,84 @@ def fused_rollout(
     return sf, si, rew
 
 
+# ---------------------------------------------------------------------------
+# The replay kernel's plan (csrc/fused_rollout.cu, replay_lanes_kernel)
+# ---------------------------------------------------------------------------
+
+REPLAY_SMEM_BYTES = 232448   # shared memory a block may use (H100)
+REPLAY_MAX_THREADS = 256     # kMaxLaneThreads in csrc/fused_rollout.cu
+# (largest batch, lanes per env, threads per block) by players per team:
+# the first row whose batch bound holds (None: any batch). The fastest
+# layout measured at 4096, 16384 and 65536 envs on the H100
+# (replay_timing.py; PERF.md, K1b), the bounds between them at the
+# geometric midpoints: more lanes an env pay where the batch alone leaves
+# the SMs few warps, and where an env's set-up (its pairs) is long; each
+# lane also runs the env's rules, so large batches of small teams take
+# fewer, and 1v1 from 65536 envs one thread per env (lanes 0, 32
+# threads a block: PR 1's kernel).
+REPLAY_LAYOUTS = {
+    1: ((8192, 8, 64), (32768, 4, 64), (None, 0, 32)),
+    2: ((8192, 8, 64), (32768, 4, 128), (None, 2, 64)),
+    3: ((8192, 8, 64), (32768, 4, 128), (None, 4, 64)),
+    4: ((8192, 8, 256), (None, 4, 64)),
+    5: ((8192, 8, 128), (32768, 8, 64), (None, 4, 64)),
+}
+
+
+def env_slot_floats(n_bodies: int) -> int:
+    """Floats of one env's shared-memory record (``EnvSlots<NB>::kStride``
+    in csrc/futbol_step_lanes.cuh): six body rows, five per pair, three
+    per (wall, body), rounded up to an odd count."""
+    pairs = n_bodies * (n_bodies - 1) // 2
+    return (6 * n_bodies + 5 * pairs + 3 * 4 * n_bodies) | 1
+
+
+def replay_launch(n_bodies: int, n_envs: int, lanes: int, threads: int) -> dict:
+    """The launch the C entry makes from the plan's ints: ``threads //
+    lanes`` envs a block, env e of block k on threads [e * lanes, (e + 1)
+    * lanes), enough blocks for ``n_envs``, each env's record in dynamic
+    shared memory (and the block's pair table, a byte a pair); lanes 0:
+    one thread per env, no shared memory (32 threads a block only: the C
+    entry refuses others)."""
+    if lanes == 0:
+        return dict(envs=threads, blocks=-(-n_envs // threads), smem=0)
+    envs = threads // lanes
+    return dict(envs=envs, blocks=-(-n_envs // envs),
+                smem=envs * env_slot_floats(n_bodies) * 4
+                + n_bodies * (n_bodies - 1) // 2)
+
+
+def replay_plan(params: EnvParams, n_envs: int) -> dict:
+    """How :func:`fused_rollout_replay` launches its kernel for ``n_envs``
+    envs, without a card: ``lanes`` (G) per env and ``threads`` per
+    block, from :data:`REPLAY_LAYOUTS` by team size and batch, the
+    threads lowered by a warp at a time until the envs' records fit the
+    shared memory; ``slots``, where the solver's per-constraint data
+    lives ("shared": shared memory, indexed by the constraint's plain
+    index, for the lanes kernel; "registers": G = 0, one thread per env
+    running futbol_step.cuh's sweep over the warp's union of active
+    constraints, PR 1's design, where it measured faster); and the
+    launch those give (:func:`replay_launch`). The wrapper passes
+    ``lanes`` and ``threads`` to the kernel; the C entry derives the
+    rest as :func:`replay_launch` does."""
+    if n_envs < 1:
+        raise ValueError("the batch must hold at least one env")
+    ppt = params.players_per_team
+    if ppt not in REPLAY_LAYOUTS:
+        raise ValueError(f"players_per_team must be one of {sorted(REPLAY_LAYOUTS)}")
+    lanes, threads = next((g, t) for most, g, t in REPLAY_LAYOUTS[ppt]
+                          if most is None or n_envs <= most)
+    while replay_launch(params.n_bodies, n_envs, lanes, threads)["smem"] > REPLAY_SMEM_BYTES:
+        threads -= 32
+    return dict(lanes=lanes, threads=threads, slots=replay_slots(lanes),
+                **replay_launch(params.n_bodies, n_envs, lanes, threads))
+
+
+def replay_slots(lanes: int) -> str:
+    """Where the solver's per-constraint data lives at ``lanes``."""
+    return "registers" if lanes == 0 else "shared"
+
+
 def fused_rollout_replay(
     statef: torch.Tensor, statei: torch.Tensor, actions: torch.Tensor,
     params: EnvParams,
@@ -395,7 +483,7 @@ def fused_rollout_replay(
     """Deterministic rollout replaying ``actions`` i32
     ``[T, 2*n_players, B]`` (per step, (dir, act) interleaved per player)
     with zero kick and kickoff noise. Returns (statef', statei', rewards
-    ``[T, B]``)."""
+    ``[T, B]``). The kernel launches as :func:`replay_plan` says."""
     b = _check_state(statef, statei, params)
     n_steps = actions.shape[0]
     shape = (n_steps, 2 * params.n_players, b)
@@ -408,6 +496,7 @@ def fused_rollout_replay(
     if not actions.is_contiguous():
         raise ValueError("actions must be contiguous")
     b, c_consts, stream = _kernel_args(statef, statei, params)
+    plan = replay_plan(params, b)
     sf, si, rew = _state_and_reward_out(statef, statei, n_steps)
     from . import _build
 
@@ -416,7 +505,7 @@ def fused_rollout_replay(
         statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
         rew.data_ptr(), actions.data_ptr(), params.n_bodies, b, n_steps,
         params.substeps, params.solver_iterations, params.max_steps,
-        c_consts, len(c_consts), stream,
+        c_consts, len(c_consts), plan["lanes"], plan["threads"], stream,
     )
     _raise_on_error(err, "fused_rollout_replay")
     LAUNCHES["fused_rollout_replay"] += 1

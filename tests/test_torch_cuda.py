@@ -27,7 +27,11 @@ unchanged; the bfloat16 route (tensor cores) at the main shape, the
 custom params and a ragged batch on the uniforms table, as the policy
 kernels' bf16 route (bounds at the test); one recurrent PPO iteration on
 it. The random rollout also on states built for the culled contact
-solver (crowded, on the walls, in the goal mouth, ragged): bitwise.
+solver (crowded, on the walls, in the goal mouth, ragged): bitwise. The
+replay (G lanes per env, per-env contact lists) on those states at
+1v1-5v5 and custom, on every layout its plan can give and its own, at a
+ragged batch and one smaller than a block: bitwise; a layout the kernel
+does not take raises.
 """
 
 import importlib
@@ -130,6 +134,85 @@ def test_kernel_bitwise_on_contact_states(cuda, params):
     ]
     for got, want in cases:
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+REPLAY_CASES = {
+    "1v1": EnvParams(players_per_team=1),
+    "2v2": EnvParams(players_per_team=2),
+    "3v3": EnvParams(players_per_team=3, max_steps=5),
+    "4v4": EnvParams(players_per_team=4, max_steps=6),
+    "5v5": EnvParams(players_per_team=5, max_steps=4),
+    "custom": CUSTOM.replace(kick_noise=0.0, placement_noise=0.0),
+}
+# every (lanes, threads) the replay plan can give, and each lane count at
+# the smallest block and at 128 threads (lowered until the envs' records
+# fit, as the plan lowers its own)
+REPLAY_ROUTES = sorted({(g, n) for rows in tfr.REPLAY_LAYOUTS.values() for _, g, n in rows}
+                       | {(g, n) for g in (2, 4, 8) for n in (32, 128)} | {(0, 32)})
+
+
+def _replay_contact_case(cuda, params, n_envs):
+    from gym_futbol_tpu_torch.interop import state_from_numpy
+
+    from _torch_cases import contact_states
+
+    pos, vel = contact_states(params, n_envs, seed=21)
+    rng = np.random.default_rng(22)
+    poss = np.where(rng.random(n_envs) < 0.5,
+                    rng.integers(1, params.n_players + 1, n_envs), -1).astype(np.int32)
+    score = rng.integers(0, 3, (n_envs, 2)).astype(np.int32)
+    t = rng.integers(0, params.max_steps, n_envs).astype(np.int32)
+    sf, si = ops.pack_state(state_from_numpy(pos, vel, poss, score, t, device=cuda),
+                            params)
+    acts = torch.from_numpy(
+        random_actions(rng, params, (T, n_envs))
+        .reshape(T, n_envs, -1).transpose(0, 2, 1).copy()).to(cuda)
+    return sf, si, acts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_envs", [32 * 7 + 19, 5], ids=["ragged", "small"])
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_replay_lanes_bitwise_on_contact_states(cuda, case, n_envs, monkeypatch):
+    """The replay kernel (G lanes per env, per-env contact lists) on
+    contact states, on every route the plan can pick (each lane count
+    G in 2, 4, 8 at 32 and 128 threads a block, one thread per env (G
+    = 0, 32 a block), and every layout of the plan's table) and the
+    plan's own:
+    bitwise equal to the plain version (signed zeros compare equal), on a
+    batch that is no multiple of 32 / G and on one smaller than a
+    block; one launch counted per call."""
+    params = REPLAY_CASES[case]
+    sf, si, acts = _replay_contact_case(cuda, params, n_envs)
+    want = tfr.fused_rollout_reference(sf, si, params, actions=acts)
+    from gym_futbol_tpu_torch.replay_timing import forced_plan
+
+    for lanes, threads in [(None, None), *REPLAY_ROUTES]:
+        if lanes is not None:
+            monkeypatch.setattr(tfr, "replay_plan", forced_plan(tfr, lanes, threads))
+        before = ops.LAUNCHES["fused_rollout_replay"]
+        got = ops.fused_rollout_replay(sf, si, acts, params)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["fused_rollout_replay"] == before + 1
+        for name, a, b in zip(("statef", "statei", "rewards"), got, want):
+            assert torch.equal(a, b), (lanes, threads, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes, threads", [(1, 64), (3, 96), (8, 48), (8, 512), (0, 64)],
+                         ids=["one-lane", "lanes", "partial-warp", "too-many",
+                              "thread-block"])
+def test_replay_refuses_a_bad_plan(cuda, lanes, threads, monkeypatch):
+    """A layout the replay kernel does not take is refused at launch and
+    raises; nothing runs and no launch is counted."""
+    params = REPLAY_CASES["2v2"]
+    sf, si, acts = _replay_contact_case(cuda, params, 64)
+    monkeypatch.setattr(tfr, "replay_plan", lambda p, n: dict(
+        lanes=lanes, threads=threads, slots="shared"))
+    before = ops.LAUNCHES["fused_rollout_replay"]
+    with pytest.raises(RuntimeError, match="fused_rollout_replay"):
+        ops.fused_rollout_replay(sf, si, acts, params)
+    assert ops.LAUNCHES["fused_rollout_replay"] == before
 
 
 @pytest.mark.cuda

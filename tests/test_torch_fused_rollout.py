@@ -233,3 +233,62 @@ def test_wrappers_validate_inputs():
         ops.fused_rollout(sf, si, 0, params, 2, uniforms=torch.zeros(2, 3, B))
     with pytest.raises(ValueError):
         ops.fused_rollout_replay(sf, si, torch.zeros(2, 8, B), params)
+
+
+# ---------------------------------------------------------------------------
+# The replay kernel's plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_envs", [1, 31, 33, 4096, 16384, 65536])
+@pytest.mark.parametrize("ppt", [1, 2, 3, 4, 5])
+def test_replay_plan(ppt, n_envs):
+    """``replay_plan`` for every team size and batch: G is 2, 4 or 8 (or
+    0, one thread per env), the block is whole warps within the kernel's
+    limit and its envs' records fit the shared memory; the grid, with env e of block k on threads
+    [e * G, (e + 1) * G), gives every env exactly one group of G lanes;
+    the ints the kernel takes (lanes, threads) give back the plan's
+    launch (``replay_launch``, the C entry's arithmetic)."""
+    params = params_from_reference(JEnvParams(players_per_team=ppt))
+    plan = tfr.replay_plan(params, n_envs)
+    g, threads = plan["lanes"], plan["threads"]
+    assert plan["slots"] == ("registers" if g == 0 else "shared")
+    assert g in (0, 2, 4, 8)
+    assert threads % 32 == 0 and 32 <= threads <= tfr.REPLAY_MAX_THREADS
+    assert plan["smem"] <= tfr.REPLAY_SMEM_BYTES
+    launch = tfr.replay_launch(params.n_bodies, n_envs, g, threads)
+    assert {k: plan[k] for k in launch} == launch
+    per_env = max(g, 1)                 # lanes 0: one thread per env
+    assert launch["envs"] * per_env == threads
+    thread = torch.arange(launch["blocks"] * threads)
+    env = thread // threads * launch["envs"] + thread % threads // per_env
+    lanes = torch.bincount(env[env < n_envs], minlength=n_envs)
+    assert lanes.shape == (n_envs,) and bool((lanes == per_env).all())
+    # a warp's envs are whole groups: no group straddles two warps
+    assert 32 % per_env == 0
+    assert int((env[::per_env] < n_envs).sum()) == n_envs
+
+
+def test_replay_plan_layouts():
+    """Every team size's rows end in one for any batch, their batch bounds
+    rise, and each row's layout is one the kernel takes."""
+    for ppt, rows in tfr.REPLAY_LAYOUTS.items():
+        bounds = [most for most, _, _ in rows]
+        assert bounds[-1] is None and bounds[:-1] == sorted(bounds[:-1])
+        for _, g, threads in rows:
+            assert g in (0, 2, 4, 8) and threads % 32 == 0
+            assert 32 <= threads <= tfr.REPLAY_MAX_THREADS
+            assert g or threads == 32      # one thread per env: PR 1's block
+
+
+def test_replay_plan_fits_shared_memory(monkeypatch):
+    """A plan whose block's records would not fit the shared memory is
+    cut a warp at a time until they do; the record is the C header's
+    EnvSlots<NB> (odd stride)."""
+    assert [tfr.env_slot_floats(nb) for nb in (3, 5, 7, 9, 11)] == [69, 141, 231, 343, 473]
+    monkeypatch.setitem(tfr.REPLAY_LAYOUTS, 5, ((None, 2, 256),))
+    plan = tfr.replay_plan(params_from_reference(JEnvParams(players_per_team=5)), 65536)
+    assert plan["threads"] == 224 and plan["smem"] <= tfr.REPLAY_SMEM_BYTES
+    assert tfr.replay_launch(11, 65536, 2, 256)["smem"] > tfr.REPLAY_SMEM_BYTES
+    with pytest.raises(ValueError):
+        tfr.replay_plan(params_from_reference(JEnvParams(players_per_team=2)), 0)
