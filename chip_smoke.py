@@ -86,7 +86,14 @@ port's main paths:
   picks for it), every kernel's launches counted exactly;
 - phase 22, the JAX package's array-form game, physics and types API on
   a CUDA batch (bench config 4's 16384 3v3 envs, states from one K1a
-  rollout), each function bitwise equal to its scalar form.
+  rollout), each function bitwise equal to its scalar form;
+- phase 23, the port's bench as a user runs it: python -m
+  gym_futbol_tpu_torch.bench --config N --verbose for configs 2-6 at
+  their presets, then --scaling with one rank, each in a subprocess:
+  exit 0, one JSON last line with the JAX bench's keys, the launches of
+  each config's kernels over its calls (every other count 0), and its
+  env-steps/s beside the rate this process's time for the same shape
+  implies (phases 6, 10 and 20).
 Phase 6 also measures the contact solver's active share (the pairs and
 walls the culled env step updates) at config 3, the 5v5 scale and config
 4, with the replay's solver slots per warp beside the warp union, and
@@ -638,6 +645,7 @@ def policy_phases(dev, custom, shares) -> list[dict]:
         collect(i)
     iters4 = 20 if time_cuda(collect, 1) < 50 else 5
     ms4 = time_cuda(collect, iters4)
+    BENCH_REFERENCE_MS[4] = ("phase 10", ms4)
     traj, (adv, ret) = box["traj"], box["gae"]
     check(tuple(traj.obs.shape) == (fc.feature_rows(p4), 2 * T4 * B4)
           and tuple(adv.shape) == (T4, 2 * B4), "10: collect shapes")
@@ -658,6 +666,7 @@ def policy_phases(dev, custom, shares) -> list[dict]:
         run_eval(i)
     iters6 = 20 if time_cuda(run_eval, 1) < 50 else 5
     ms6 = time_cuda(run_eval, iters6)
+    BENCH_REFERENCE_MS[6] = ("phase 10", ms6)
     m = evals[-1]
     check(abs(m["win_rate_a"] + m["win_rate_b"] + m["draw_rate"] - 1.0) < 1e-9
           and (m["goals"] >= 0).all() and math.isfinite(m["mean_team0_reward"]),
@@ -2414,6 +2423,7 @@ def config5_phase(dev, k2_plan: dict, shares: dict) -> tuple[dict, dict]:
               f"{it['ms'] - it['collect'] - it['update']:.3f} ms; launches "
               f"{launches}; loss " + " ".join(f"{v:.5g}" for v in values["loss"]))
     k3_launches = runs["tensor cores"]["launches"]["fused_minibatch_grad"]
+    BENCH_REFERENCE_MS[5] = ("phase 20", runs["tensor cores"]["ms"])
 
     # K2's bound per step at config 5, at phase 6's 5v5 active share, and
     # its cuBLAS yardstick
@@ -2736,6 +2746,101 @@ def array_api_phase(dev, params, sf, si) -> None:
           f"steps): {len(pairs)} array forms and the 4 body tables bitwise "
           f"equal to the scalar forms on the card ({owners} owners, {kicks} "
           f"kicks) in {time.perf_counter() - t0:.1f} s")
+
+
+# Phase 23: the port's bench as a user runs it, each config at its preset
+# and default --iters. Per call of the bench's loop, the launches of the
+# kernel of each config's path (every other count must stay 0: no plain
+# version, no float32 route, no CUDA-core chain); the bench's --verbose
+# line counts from the first of its two warm-ups, so over iters + 2 calls.
+BENCH_LAUNCHES = {2: {"fused_rollout": 1}, 3: {"fused_rollout": 1},
+                  4: {"fused_collect": 1},
+                  5: {"fused_collect": 1, "fused_minibatch_grad": 16},
+                  6: {"fused_selfplay_rollout": 1}}
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+BENCH_SCALING_KEYS = BENCH_KEYS + ["steps_per_sec"]
+# ms per call of the same shape's path in this process, for each config
+# (phase 6: K1a's rollout; phase 10: collect + GAE, evaluate_fused; phase
+# 20: the PPO iteration), written by those phases
+BENCH_REFERENCE_MS: dict[int, tuple[str, float]] = {}
+
+
+def run_bench(argv: list[str], keys: list[str]) -> tuple[dict, list[str], float]:
+    """``python -m gym_futbol_tpu_torch.bench *argv`` in a subprocess:
+    exit 0 and exactly one JSON line, the last, with ``keys`` in order and
+    a value > 0. Returns (record, stdout lines, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gym_futbol_tpu_torch.bench", *argv],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    what = f"23: bench {' '.join(argv)}"
+    check(proc.returncode == 0, f"{what} exit {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    records = [x for x in lines if x.startswith("{")]
+    check(len(records) == 1 and lines[-1] == records[0],
+          f"{what}: {len(records)} JSON lines, last line {lines[-1:]}")
+    rec = json.loads(records[0])
+    check(list(rec) == keys and rec["value"] > 0, f"{what}: record {rec}")
+    return rec, lines, secs
+
+
+def verbose_field(lines: list[str], prefix: str) -> str:
+    """The rest of the bench's ``# <prefix>...`` line after its first
+    ': '."""
+    line = next((x for x in lines if x.startswith(f"# {prefix}")), None)
+    check(line is not None, f"23: no '# {prefix}' line in {lines}")
+    return line.split(": ", 1)[-1]
+
+
+def bench_phase() -> None:
+    """Phase 23: ``python -m gym_futbol_tpu_torch.bench --config N
+    --verbose`` for configs 2-6 at their presets, then ``--scaling`` with
+    one rank: each exits 0 with one contract line; its launches over the
+    warm-ups and the timed calls prove its kernels ran (BENCH_LAUNCHES,
+    every other count 0). Each rate is printed beside the one implied by
+    this process's time for the same shape (BENCH_REFERENCE_MS)."""
+    import torch
+
+    from gym_futbol_tpu_torch.bench import CONFIGS
+
+    torch.cuda.empty_cache()     # the subprocesses share the card
+    t0 = time.perf_counter()
+    for config in sorted(CONFIGS):
+        rec, lines, secs = run_bench(["--config", str(config), "--verbose"],
+                                     BENCH_KEYS)
+        p = CONFIGS[config]
+        calls = (40 if config == 2 else 10) + 2
+        launches = json.loads(verbose_field(lines, "kernel launches"))
+        want = {k: 0 for k in launches}
+        want.update({k: n * calls for k, n in BENCH_LAUNCHES[config].items()})
+        check(launches == want, f"23: config {config}'s launches {launches}, "
+              f"want {want}")
+        ran = {k: n for k, n in launches.items() if n}
+        if config in BENCH_REFERENCE_MS:
+            where, ms = BENCH_REFERENCE_MS[config]
+            rate = p["envs"] * p["steps"] / ms * 1e3
+            beside = (f"{where}'s {ms:.3f} ms a call implies {rate:.6g} "
+                      f"env-steps/s, the bench's ratio to it "
+                      f"{rec['value'] / rate:.4f}")
+        else:
+            beside = "no phase times this shape"
+        phase("23 bench", f"config {config} ({p['ppt']}v{p['ppt']} B={p['envs']} "
+              f"T={p['steps']}): {rec['value']} env-steps/s (vs_baseline "
+              f"{rec['vs_baseline']}); {beside}; launches {ran} over {calls} "
+              f"calls; first run {verbose_field(lines, 'first run')}; "
+              f"{secs:.1f} s in all; {verbose_field(lines, 'device')}")
+    rec, lines, secs = run_bench(["--scaling", "--verbose"], BENCH_SCALING_KEYS)
+    check(rec["value"] == 1.0 and list(rec["steps_per_sec"]) == ["1"],
+          f"23: --scaling on one rank: {rec}")
+    launches = json.loads(verbose_field(lines, "kernel launches"))
+    check(launches["fused_collect"] == 12
+          and launches["fused_minibatch_grad"] == 16 * 12,
+          f"23: --scaling's launches {launches}")
+    phase("23 bench", f"--scaling, one rank: {json.dumps(rec)}; {secs:.1f} s")
+    phase("23 time", f"phase 23 in {time.perf_counter() - t0:.1f} s")
 
 
 def replay_phase(dev, shares: dict) -> list[dict]:
@@ -3119,6 +3224,7 @@ def main() -> int:
         box[0], box[1], _ = ops.fused_rollout(box[0], box[1], 200 + i, p3, T3)
 
     ms3 = time_cuda(run3, iters)
+    BENCH_REFERENCE_MS[3] = ("phase 6", ms3)
     sf, si = box
     check(bool(torch.isfinite(sf).all()), "6: non-finite state")
     check(torch.equal(si[3].long(),
@@ -3200,6 +3306,7 @@ def main() -> int:
     policy_record[0].update(k2_config5)
     learning_gate_phase()
     array_api_phase(dev, p4, sf4, si4)
+    bench_phase()
     phase("time", "seconds per phase (each interval between two lines charged "
           "to the phase of the later): " + json.dumps(
               {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
