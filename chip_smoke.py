@@ -2902,7 +2902,9 @@ def replay_phase(dev, shares: dict) -> list[dict]:
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (the share of its wall
     time the device was busy, the wall ms, [(kernel, launches, device
-    ms)] largest first). One stream, so the kernels do not overlap."""
+    ms)] largest first). One stream, so the kernels do not overlap. The
+    program's spans, which the profiler also draws on the device's
+    timeline (user annotations), are no device work and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2915,7 +2917,7 @@ def device_profile(fn):
         wall_us = (time.perf_counter() - t0) * 1e6
     per = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         name = re.sub(r"\([^()]*\)$", "", e.name).replace(
             "(anonymous namespace)::", "").replace("void ", "")[:70]

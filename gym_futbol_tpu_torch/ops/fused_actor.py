@@ -38,6 +38,7 @@ from ..models.policy import (
 )
 from ..physics import to_dtype
 from ..types import EnvParams
+from ..utils.profiling import spanned
 from .fused_rollout import (
     LAUNCHES,
     _check_state,
@@ -472,6 +473,7 @@ def tc_plan_ints(plan: dict):
     return (ctypes.c_int * len(vals))(*vals)
 
 
+@spanned("ops.fused_selfplay_rollout")
 def fused_selfplay_rollout(
     statef: torch.Tensor, statei: torch.Tensor, weights_a: tuple,
     weights_b: tuple, seed: int, params: EnvParams, n_steps: int,

@@ -44,6 +44,7 @@ import torch
 from .. import env as env_core
 from ..models.policy import N_CHOICES, ActorCritic
 from ..types import EnvParams
+from ..utils.profiling import spanned
 from .fused_actor import (
     check_compute_dtype,
     check_limits,
@@ -200,6 +201,7 @@ def fused_collect_reference(
 # ---------------------------------------------------------------------------
 
 
+@spanned("ops.fused_collect")
 def fused_collect(
     statef: torch.Tensor, statei: torch.Tensor, weights: tuple, seed: int,
     params: EnvParams, n_steps: int, uniforms: torch.Tensor | None = None,

@@ -52,6 +52,7 @@ from .. import env as env_core
 from ..models.policy import N_CHOICES
 from ..models.recurrent import RecurrentActorCritic, lstm_cell
 from ..types import EnvParams
+from ..utils.profiling import spanned
 from .fused_actor import (
     MAX_LAYERS,
     MAX_WIDTH,
@@ -394,6 +395,7 @@ def recurrent_tc_plan_ints(plan: dict):
     return (ctypes.c_int * len(vals))(*vals)
 
 
+@spanned("ops.fused_recurrent_collect")
 def fused_recurrent_collect(
     statef: torch.Tensor, statei: torch.Tensor, weights: tuple,
     carry_c: torch.Tensor, carry_h: torch.Tensor, seed: int,

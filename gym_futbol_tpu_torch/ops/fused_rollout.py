@@ -28,6 +28,7 @@ import torch
 from .. import env as env_core
 from ..physics import dtype_scalar, physics_constants, to_dtype
 from ..types import EnvParams, EnvState
+from ..utils.profiling import spanned
 
 # Kernel launches by wrapper name, for every kernel of the package; each
 # wrapper adds one where it launches its kernel. The policy wrappers
@@ -362,6 +363,7 @@ def _raise_on_error(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
 
 
+@spanned("ops.fused_rollout")
 def fused_rollout(
     statef: torch.Tensor, statei: torch.Tensor, seed: int,
     params: EnvParams, n_steps: int, uniforms: torch.Tensor | None = None,
@@ -476,6 +478,7 @@ def replay_slots(lanes: int) -> str:
     return "registers" if lanes == 0 else "shared"
 
 
+@spanned("ops.fused_rollout_replay")
 def fused_rollout_replay(
     statef: torch.Tensor, statei: torch.Tensor, actions: torch.Tensor,
     params: EnvParams,

@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from ..models.policy import N_CHOICES
+from ..utils.profiling import spanned
 from .fused_rollout import LAUNCHES, _raise_on_error
 
 METRICS = ("pg_loss", "v_loss", "entropy", "approx_kl")
@@ -460,6 +461,7 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+@spanned("ops.fused_minibatch_grad")
 def fused_minibatch_grad(
     weights: tuple, obs_fm: torch.Tensor, dirs_blk: torch.Tensor,
     acts_blk: torch.Tensor, logp_blk: torch.Tensor, value_blk: torch.Tensor,

@@ -57,6 +57,7 @@ from .models.policy import (
     sample_actions,
 )
 from .types import EnvParams, EnvState
+from .utils.profiling import span
 from .vector import reset_batch, step_batch
 from .wrappers import RewardNorm, RunningNorm
 
@@ -753,13 +754,18 @@ def train_iteration(
     ``group`` (the runner one rank's share, as ``parallel.shard_runner``
     gives it) the update averages over the ranks and ``mean_reward`` is
     the mean over every rank's envs; a normalised ``collect_fn`` takes
-    the group when it is made (:func:`make_normalized_collect`)."""
+    the group when it is made (:func:`make_normalized_collect`). The
+    three stages are the spans ``ppo.collect``, ``ppo.gae`` and
+    ``ppo.update`` while a profiler runs."""
     collect_fn = collect_fn or collect_rollout
     update_fn = update_fn or update_epochs
-    runner, traj, last_value = collect_fn(runner, env_params, cfg)
-    adv, returns = compute_gae(traj, last_value, cfg)
-    metrics = update_fn(runner.model, runner.optimizer, traj, adv, returns,
-                        runner.generator, cfg, group=group)
+    with span("ppo.collect"):
+        runner, traj, last_value = collect_fn(runner, env_params, cfg)
+    with span("ppo.gae"):
+        adv, returns = compute_gae(traj, last_value, cfg)
+    with span("ppo.update"):
+        metrics = update_fn(runner.model, runner.optimizer, traj, adv, returns,
+                            runner.generator, cfg, group=group)
     metrics["mean_reward"] = mean_reward(traj, group)
     return runner, metrics
 

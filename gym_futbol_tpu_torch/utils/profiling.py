@@ -1,7 +1,9 @@
 """Timing and tracing helpers.
 
 Counterpart of :mod:`gym_futbol_tpu.utils.profiling`: a wall clock that
-waits for the device, and a ``torch.profiler`` trace. The JAX package's
+waits for the device, a ``torch.profiler`` trace, and the program's
+named spans (:func:`span`, :func:`spanned`), which the profiler records
+while it runs and which cost one check while it does not. The JAX package's
 ``cost_analysis`` (XLA's compiled FLOP and byte estimates) has no
 counterpart: the kernels' operations and bytes are counted by hand from
 their shapes (``chip_smoke.py``'s ``env_step_ops`` and ``mlp_ops``).
@@ -10,6 +12,7 @@ their shapes (``chip_smoke.py``'s ``env_step_ops`` and ``mlp_ops``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Any, Iterator
@@ -57,3 +60,41 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class _NoSpan:
+    """What :func:`span` returns while no profiler runs: enters and
+    leaves doing nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A named range of the program: ``torch.profiler.record_function``
+    while a profiler runs, which records it on the profiler's clock (the
+    kernels it launches are drawn on the device's timeline beside it, and
+    a span opened inside another is its child), else :data:`NO_SPAN`."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: each call of the function is one :func:`span` ``name``,
+    from entry to return."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
