@@ -815,6 +815,7 @@ def policy_phases(dev, custom, shares) -> list[dict]:
             phase("10 kernels", line)
     return [
         {"name": "fused_collect", "route": "cuda", "source": POLICY_SOURCE,
+         "env_step": "culled" if fc.collect_culls(p4) else "unculled",
          "replaces": REPLACES["fused_collect"],
          "launches": launches["fused_collect"],
          "max_abs_err": errs["fused_collect"], "ms": ms_k2,
@@ -2434,7 +2435,15 @@ def config5_phase(dev, k2_plan: dict, shares: dict) -> tuple[dict, dict]:
     del sf5, si5
     ms_cublas_k2 = k2_cublas_ms(dev, p5, w5, B5, H5)
     k2_step = runs["tensor cores"]["collect"] / T5
+    # the route K2 compiled for 5v5, and the share of the sweep a culled
+    # warp runs on phase 6's 5v5 states (its warp union)
+    route5 = "culled" if fc.collect_culls(p5) else "unculled"
+    sh5 = shares["5v5"]
+    union5 = {k: sh5[f"{k}_warp"] / sh5[f"n_{k}"] for k in ("pairs", "walls")}
     phase("20 bound", f"fused_collect at config 5 (5v5 B={B5} hidden {H5}): "
+          f"env step {route5} (collect_culls), a warp's union "
+          f"{union5['pairs']:.4g} of the pairs and {union5['walls']:.4g} of the "
+          f"walls a substep (phase 6's 5v5 share); "
           f"{ops_k2} operations per env-step (the env step "
           f"{env_step_ops(p5, shares['5v5'])} at phase 6's 5v5 share), of them "
           f"{ops_k2_bf16} bf16 products -> bound {bound_k2[0]:.6g} ms/step "
@@ -2510,7 +2519,8 @@ def config5_phase(dev, k2_plan: dict, shares: dict) -> tuple[dict, dict]:
           f"{wall_ms:.3f} ms wall, device busy share {busy:.4f}; device ms by "
           f"kernel: " + "; ".join(f"{name} {n}x {ms:.3f}" for name, n, ms in rows[:8]))
     phase("20 time", f"phase 20 in {time.perf_counter() - t0:.1f} s")
-    k2_fields = {"config5_ms": k2_step, "config5_bound_ms": bound_k2[0],
+    k2_fields = {"config5_env_step": route5, "config5_union_share": union5,
+                 "config5_ms": k2_step, "config5_bound_ms": bound_k2[0],
                  "config5_bound_by": bound_k2[1],
                  "config5_library_ms": ms_cublas_k2,
                  "config5_time_unit": f"ms per step of phase 20's collect, 5v5 "

@@ -240,6 +240,17 @@ __device__ __forceinline__ const uint4* block_start(const uint4* __restrict__ wf
 // blockIdx.x * plan.envs + i.
 // ---------------------------------------------------------------------------
 
+// The collect's env step runs culled (futbol_step.cuh's solve_contacts)
+// at the team sizes where that measured faster on the H100 (PERF.md §6):
+// from 4v4 on, where a warp's union holds under a tenth of the pairs and
+// walls, and at 1v1. 2v2 and 3v3 run the unculled sweep, 3% and 20%
+// faster there. futbol_collect_tc_culls reports the choice.
+constexpr int kCullFromBodies = 9;
+
+__host__ __device__ constexpr bool collect_culls(int n_bodies) {
+  return n_bodies == 3 || n_bodies >= kCullFromBodies;
+}
+
 template <int NB>
 __global__ void __launch_bounds__(kTcMaxThreads)
 collect_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_in,
@@ -285,9 +296,9 @@ collect_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_in
       const EnvDraws<NB> draws{table, seed, ND, B, step, b, c.kick_noise};
       bool goal0, goal1;
       float r[2];
-      // the unculled step (CULL false): culling slowed this kernel at
-      // config 4 (PERF.md, PR 7), though it speeds up the step alone
-      r[0] = step_dynamics<NB, false>(e, dirs, acts, draws, c, k, goal0, goal1, r[1]);
+      // culled or not by the team size (collect_culls)
+      r[0] = step_dynamics<NB, collect_culls(NB)>(e, dirs, acts, draws, c, k, goal0,
+                                                  goal1, r[1]);
       const int done = step_finish<NB>(e, goal0, goal1, draws, c, k) ? 1 : 0;
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
@@ -429,6 +440,9 @@ cudaError_t set_smem(K kernel, size_t smem) {
 }  // namespace
 
 extern "C" {
+
+// 1 where collect_tc_kernel<n_bodies> runs the culled env step, else 0.
+int futbol_collect_tc_culls(int n_bodies) { return collect_culls(n_bodies) ? 1 : 0; }
 
 int futbol_fused_collect_tc(const float* sf_in, const int* si_in, float* sf_out,
                             int* si_out, const void* wfrag, int n_frag, const float* fv,

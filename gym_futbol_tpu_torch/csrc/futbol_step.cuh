@@ -33,8 +33,9 @@
 // order of operations never changes: the result is the plain version's,
 // bitwise (signed zeros compare equal). The branch is warp-uniform, so the
 // warp stays converged for the mma.sync of the kernels that inline the
-// step. step_dynamics' CULL parameter turns it off for a kernel that
-// measured slower with it (fused_policy_tc.cu's collect_tc_kernel). The
+// step. step_dynamics' CULL parameter turns it off where it measured
+// slower: fused_policy_tc.cu's collect_tc_kernel chooses it by team size
+// (collect_culls: culled at 1v1 and from 4v4 on, not at 2v2-3v3). The
 // replay kernel replaces the physics (step_dynamics' Phys parameter) by
 // futbol_step_lanes.cuh's: G lanes per env and per-env contact lists.
 

@@ -179,6 +179,8 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_collect_tc.restype = i
+    lib.futbol_collect_tc_culls.argtypes = [i]   # n_bodies
+    lib.futbol_collect_tc_culls.restype = i
     lib.futbol_fused_selfplay_tc.argtypes = [
         p, p, p, p,           # statef, statei in; statef, statei out
         p, i, p,              # bf16 weight fragments (both MLPs), units, f32 vector

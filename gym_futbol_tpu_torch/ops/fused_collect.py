@@ -78,6 +78,15 @@ def feature_rows(params: EnvParams) -> int:
     return -(-env_core.obs_size(params) // 8) * 8
 
 
+def collect_culls(params: EnvParams) -> bool:
+    """Whether the bfloat16 kernel runs the env step culled at this team
+    size (``csrc/fused_policy_tc.cu``'s ``collect_culls``), as compiled:
+    builds the kernels at first use, so it needs the CUDA toolkit."""
+    from . import _build
+
+    return bool(_build.load().futbol_collect_tc_culls(params.n_bodies))
+
+
 def flatten_actor_critic(model: ActorCritic) -> tuple:
     """An :class:`ActorCritic`'s weights as the flat kernel-order tuple:
     torso layers, logits head, value head, each ``W`` ``[in, out]`` and

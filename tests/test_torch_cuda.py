@@ -330,20 +330,29 @@ def _near_ties(kernel_out, plain_out, calls, actions, eps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("params,hidden,n_envs", [
-    (EnvParams(players_per_team=3, max_steps=6), (64, 48), 1000),
-    (CUSTOM, (32, 16), B),
-    (EnvParams(players_per_team=2), (128, 128), B),
-], ids=["3v3-ragged", "custom", "2v2-128"])
-def test_policy_kernels_bf16_match_plain(cuda, params, hidden, n_envs, monkeypatch):
+@pytest.mark.parametrize("params,hidden,n_envs,culled", [
+    (EnvParams(players_per_team=3, max_steps=6), (64, 48), 1000, False),
+    (CUSTOM, (32, 16), B, False),
+    (EnvParams(players_per_team=2), (128, 128), B, False),
+    (EnvParams(players_per_team=1, max_steps=6), (64, 64), 1000, True),
+    (EnvParams(players_per_team=4, max_steps=6), (256, 256), 1000, True),
+    (EnvParams(players_per_team=5), (256, 256), 1000, True),
+], ids=["3v3-ragged", "custom", "2v2-128", "1v1-ragged", "4v4-256-ragged",
+        "5v5-256-ragged"])
+def test_policy_kernels_bf16_match_plain(cuda, params, hidden, n_envs, culled,
+                                         monkeypatch):
     """The bfloat16 route (tensor cores) against the plain bfloat16
     version on the same uniforms, at test_policy_kernels_match_plain's
-    shapes: on the envs whose sampled actions all agree, logp, value and
-    last_value within 1e-2 (the f32 sums in another order, which can
-    move a rounded activation by one bf16 ulp), the env's outputs within
-    1e-5 and integers exact; every differing action a near tie (within
+    shapes and at 1v1, 4v4 and 5v5: on the envs whose sampled actions all
+    agree, logp, value and last_value within 1e-2 (the f32 sums in
+    another order, which can move a rounded activation by one bf16 ulp),
+    the env's outputs within 1e-5 and integers exact, and exactly where
+    K2 runs the culled env step (``culled``, the route that
+    ``collect_culls`` reports; the ragged batches leave lanes of the last
+    warp without an env); every differing action a near tie (within
     twice the measured logp error of a CDF boundary); the near-tie
     count is reported."""
+    assert tfc.collect_culls(params) == culled
     sf, si, w, wa, wb, u = _policy_case(cuda, params, hidden, n_envs)
     before = dict(ops.LAUNCHES)
     got2 = ops.fused_collect(sf, si, w, 0, params, T, uniforms=u)
@@ -375,7 +384,7 @@ def test_policy_kernels_bf16_match_plain(cuda, params, hidden, n_envs, monkeypat
     for got, want, good, env_outs in ((got2, want2, good2, (0, 1, 2, 7, 8)),
                                       (got4, want4, good4, (0, 1, 2, 3))):
         for i in env_outs:
-            if got[i].dtype.is_floating_point:
+            if got[i].dtype.is_floating_point and not culled:
                 torch.testing.assert_close(got[i][..., good], want[i][..., good],
                                            rtol=1e-5, atol=1e-5)
             else:
