@@ -86,6 +86,7 @@ from .fused_rollout import (
 )
 
 __all__ = [
+    "check_kernel_shape",
     "flatten_recurrent_actor_critic",
     "fused_recurrent_collect",
     "fused_recurrent_collect_reference",
@@ -262,6 +263,11 @@ def _unit_major(hs: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# 4H on the tensor-core route: the widest cell run against its plain
+# version on the card (H = 256, stable-baselines' MlpLstmPolicy)
+TC_MAX_GATES = 1024
+
+
 def recurrent_gate_order(hsize: int) -> torch.Tensor:
     """The tensor-core kernel's cell columns: entry ``n`` of the ``[4
     hp]`` result (hp = H rounded up to 16) is the JAX-layout column
@@ -395,6 +401,31 @@ def recurrent_tc_plan_ints(plan: dict):
     return (ctypes.c_int * len(vals))(*vals)
 
 
+def check_kernel_shape(widths, hsize: int, compute_dtype) -> None:
+    """Raise unless the route of ``compute_dtype`` takes torso ``widths``
+    and LSTM size ``hsize``: H a multiple of 4, at most
+    ``MAX_LAYERS - 2`` torso layers of width at most ``MAX_WIDTH``; 4H at
+    most :data:`TC_MAX_GATES` on the bfloat16 route, and on the float32
+    route 4H and the cell's input rows (t and h together) at most
+    ``MAX_WIDTH``."""
+    if hsize % 4:
+        raise ValueError(f"the kernel takes an LSTM size that is a multiple "
+                         f"of 4, got {hsize}")
+    if len(widths) + 2 > MAX_LAYERS or max(widths) > MAX_WIDTH:
+        raise ValueError(f"the kernels take at most {MAX_LAYERS - 2} torso "
+                         f"layers, each at most {MAX_WIDTH} wide")
+    if compute_dtype == torch.float32:
+        if max(4 * hsize, widths[-1] + hsize) > MAX_WIDTH:
+            raise ValueError(
+                f"the float32 kernel takes 4H <= {MAX_WIDTH} and t and h "
+                f"together at most {MAX_WIDTH} rows, got H = {hsize} after a "
+                f"torso {widths[-1]} wide; the bfloat16 route "
+                f"(compute_dtype=torch.bfloat16) takes 4H <= {TC_MAX_GATES}")
+    elif 4 * hsize > TC_MAX_GATES:
+        raise ValueError(f"the bfloat16 kernel takes 4H <= {TC_MAX_GATES}, "
+                         f"got H = {hsize}")
+
+
 @spanned("ops.fused_recurrent_collect")
 def fused_recurrent_collect(
     statef: torch.Tensor, statei: torch.Tensor, weights: tuple,
@@ -406,9 +437,10 @@ def fused_recurrent_collect(
     docstring).
 
     ``weights``: the flat tuple of :func:`flatten_recurrent_actor_critic`
-    (the kernels take H a multiple of 4, 4H at most 512, torso widths at
-    most 512 and at most 6 torso layers; the float32 kernel also the
-    cell's input t and h together at most 512 rows). ``carry_c``/
+    (the kernels take H a multiple of 4, torso widths at most 512 and at
+    most 6 torso layers; 4H at most 1024 on the bfloat16 route, at most
+    512 on the float32 route, which also takes the cell's input t and h
+    together at most 512 rows: :func:`check_kernel_shape`). ``carry_c``/
     ``carry_h`` f32 ``[2, H, B]``, left unchanged. Draws come from Philox
     keyed by ``seed`` (an int; a new seed for each call), or from
     ``uniforms`` f32 ``[n_steps, n_draws, B]``. ``compute_dtype``:
@@ -435,13 +467,8 @@ def fused_recurrent_collect(
             statef, statei, weights, carry_c, carry_h, params, n_steps,
             uniforms=uniforms, seed=None if uniforms is not None else seed,
             compute_dtype=compute_dtype)
-    if hs % 4:
-        raise ValueError(f"the kernel takes an LSTM size that is a multiple "
-                         f"of 4, got {hs}")
     widths = [w.shape[1] for w in weights[:2 * n_torso:2]]
-    if n_torso + 2 > MAX_LAYERS or 4 * hs > MAX_WIDTH or max(widths) > MAX_WIDTH:
-        raise ValueError(f"the kernels take at most {MAX_LAYERS - 2} torso "
-                         f"layers, widths and 4H <= {MAX_WIDTH}")
+    check_kernel_shape(widths, hs, compute_dtype)
     if not (carry_c.is_contiguous() and carry_h.is_contiguous()):
         raise ValueError("carry_c and carry_h must be contiguous")
     b, c_consts, stream = _kernel_args(statef, statei, params)

@@ -50,6 +50,7 @@ from .ppo import (
     mean_reward,
 )
 from .types import EnvParams
+from .utils.profiling import span
 
 __all__ = [
     "RecurrentPPOConfig",
@@ -168,13 +169,18 @@ def train_iteration_recurrent_ppo(
     from the carry the window started with. Returns (runner, metrics:
     the update's mean ``loss``, ``pg_loss``, ``v_loss``, ``entropy``,
     ``approx_kl`` and the team-0 rows' ``mean_reward``), both averaged
-    over ``group``'s ranks."""
+    over ``group``'s ranks. The three stages are the spans
+    ``rppo.collect``, ``rppo.gae`` and ``rppo.update`` while a profiler
+    runs."""
     collect_fn = collect_fn or collect_recurrent_rollout
     update_fn = update_fn or update_epochs_recurrent
     init_carry = _flat_carry(runner.carry, runner.obs.shape[0])
-    runner, traj, last_value = collect_fn(runner, env_params, cfg)
-    adv, returns = compute_gae(traj, last_value, cfg)
-    metrics = update_fn(runner.model, runner.optimizer, traj, init_carry, adv,
-                        returns, runner.generator, cfg, group=group)
+    with span("rppo.collect"):
+        runner, traj, last_value = collect_fn(runner, env_params, cfg)
+    with span("rppo.gae"):
+        adv, returns = compute_gae(traj, last_value, cfg)
+    with span("rppo.update"):
+        metrics = update_fn(runner.model, runner.optimizer, traj, init_carry, adv,
+                            returns, runner.generator, cfg, group=group)
     metrics["mean_reward"] = mean_reward(traj, group)
     return runner, metrics

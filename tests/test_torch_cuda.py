@@ -25,9 +25,11 @@ The recurrent collect in table and Philox modes from non-zero carries
 sampled actions exact, floats and carries 1e-5, the input carries
 unchanged; the bfloat16 route (tensor cores) at the main shape, the
 custom params and a ragged batch on the uniforms table, as the policy
-kernels' bf16 route (bounds at the test); one recurrent PPO iteration on
-it. The random rollout also on states built for the culled contact
-solver (crowded, on the walls, in the goal mouth, ragged): bitwise. The
+kernels' bf16 route (bounds at the test), also at stable-baselines'
+MlpLstmPolicy widths (torso (64, 64), H = 256, 4H = 1024: the cell's
+fragments mostly read from L2); one recurrent PPO iteration on it. The
+random rollout also on states built for the culled contact solver
+(crowded, on the walls, in the goal mouth, ragged): bitwise. The
 replay (G lanes per env, per-env contact lists) on those states at
 1v1-5v5 and custom, on every layout its plan can give and its own, at a
 ragged batch and one smaller than a block: bitwise; a layout the kernel
@@ -637,7 +639,9 @@ def test_recurrent_kernel_matches_plain(cuda, params, hidden, lstm, n_envs):
     (EnvParams(players_per_team=3), (128,), 128, 16384),      # the main shape
     (CUSTOM, (32, 16), 16, B),
     (EnvParams(players_per_team=3, max_steps=6), (64,), 36, 1000),
-], ids=["3v3-main", "custom", "3v3-ragged"])
+    (EnvParams(players_per_team=3), (64, 64), 256, 16384),    # MlpLstmPolicy
+    (EnvParams(players_per_team=3, max_steps=6), (64, 64), 256, 1000),
+], ids=["3v3-main", "custom", "3v3-ragged", "3v3-mlplstm", "3v3-mlplstm-ragged"])
 def test_recurrent_kernel_bf16_matches_plain(cuda, params, hidden, lstm, n_envs,
                                             monkeypatch):
     """The bfloat16 route (recurrent_tc_kernel, tensor cores) against the

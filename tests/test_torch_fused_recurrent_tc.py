@@ -232,7 +232,8 @@ def _emulate_cell_loop(x, c0, h0, frags, fv, table, wv_off, n_torso, hs):
 
 
 @pytest.mark.parametrize("ppt,hidden,hs", [(3, (128,), 128), (2, (48, 40), 20),
-                                           (1, (16, 16, 16), 4), (5, (100,), 36)])
+                                           (1, (16, 16, 16), 4), (5, (100,), 36),
+                                           (3, (64, 64), 256)])
 def test_packed_cell_loop_matches_plain_forward(ppt, hidden, hs):
     """K5's packed buffers (torso, logits head, the cell in the kernel's
     gate order, biases, value head) through an emulation of the kernel's
@@ -285,12 +286,13 @@ def test_pack_layout_order():
 
 
 @pytest.mark.parametrize("ppt", [1, 2, 3, 5])
-@pytest.mark.parametrize("hs", [4, 20, 64, 128])
+@pytest.mark.parametrize("hs", [4, 20, 64, 128, 256])
 @pytest.mark.parametrize("n_envs", [1000, 4096, 16384, 65536])
 def test_recurrent_plan_covers_every_accepted_shape(ppt, hs, n_envs):
-    """Every shape the wrapper takes (torso widths 16-512, one to three
-    layers, H a multiple of 4 up to 128) has a layout within the block's
-    shared memory whose tiles hold what the kernel puts there."""
+    """Every shape the wrapper takes on the bf16 route (torso widths
+    16-512, one to three layers, H a multiple of 4 up to 256) has a
+    layout within the block's shared memory whose tiles hold what the
+    kernel puts there."""
     params = params_from_reference(JEnvParams(players_per_team=ppt))
     k0 = -(-obs_size(params) // 16) * 16
     nl = -(-ppt * 10 // 16) * 16
@@ -326,6 +328,43 @@ def test_recurrent_plan_main_shape():
     assert plan["ld"] == (40, 0, 264) and plan["t_bytes"] == (4224, 0, 16896)
     assert plan["n_res"] == (232448 - 4 * (4224 + 16896)) // 16
     assert plan["smem"] == 232448
+
+
+def test_recurrent_plan_mlplstm_shape():
+    """stable-baselines' MlpLstmPolicy on the benchmark's 16384 3v3 envs
+    (torso (64, 64), H = 256): 128 blocks of 128 envs, one wave; the
+    cell's fragments, (64 + 256) x 1024 bf16 = 655,360 bytes, with the
+    torso's and the head's 28,672 make 684,032; four warps' tiles take
+    102,400 bytes (xc 328 elements wide), so the torso, the head and the
+    first 101,376 bytes of the cell are resident, the rest read from L2."""
+    p3 = params_from_reference(JEnvParams(players_per_team=3))
+    plan = tfr.recurrent_tc_plan(p3, (64, 64), 256, 16384)
+    assert (plan["envs"], plan["blocks"], plan["blocks_per_sm"]) == (128, 128, 1)
+    assert plan["frag_bytes"] == 684032 and plan["weights"] == "prefix"
+    assert plan["ld"] == (72, 0, 328) and plan["t_bytes"] == (4608, 0, 20992)
+    assert plan["n_res"] == (232448 - 4 * (4608 + 20992)) // 16 == 8128
+    assert plan["smem"] == 232448
+
+
+@pytest.mark.parametrize("widths,hs,dtype,match", [
+    ((64, 64), 256, F32, "bfloat16 route"),     # 4H = 1024 > 512
+    ((512,), 32, F32, "bfloat16 route"),        # t and h 544 rows
+    ((64, 64), 260, BF16, "4H <= 1024"),
+    ((64, 64), 250, BF16, "multiple of 4"),
+    ((64, 1024), 64, BF16, "at most 512 wide"),
+])
+def test_kernel_shape_refusals(widths, hs, dtype, match):
+    """The float32 route keeps 4H and the cell's input rows at most 512,
+    and its refusal names the bfloat16 route, which takes 4H up to
+    1024; both take H a multiple of 4 and torso widths up to 512."""
+    with pytest.raises(ValueError, match=match):
+        tfr.check_kernel_shape(widths, hs, dtype)
+
+
+@pytest.mark.parametrize("widths,hs,dtype", [
+    ((64, 64), 256, BF16), ((128,), 128, F32), ((128,), 128, BF16), ((384,), 128, F32)])
+def test_kernel_shape_accepted(widths, hs, dtype):
+    tfr.check_kernel_shape(widths, hs, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,20 @@
 """The program's spans (``utils.profiling.span``): nothing reached while
 no profiler runs; under ``torch.profiler`` the PPO iteration's three
-stages, each kernel wrapper once per call and nested where they run;
-and the same numbers with a profiler open as without. Host only, tiny
-shapes (the wrappers' plain versions)."""
+stages and the recurrent PPO iteration's, each kernel wrapper once per
+call and nested where they run; and the same numbers with a profiler
+open as without. Host only, tiny shapes (the wrappers' plain
+versions)."""
 
 import pytest
 import torch
 
 torch.set_num_threads(1)
 
+from gym_futbol_tpu_torch import a2c  # noqa: E402
 from gym_futbol_tpu_torch import env as env_core  # noqa: E402
 from gym_futbol_tpu_torch import ops  # noqa: E402
 from gym_futbol_tpu_torch import ppo  # noqa: E402
+from gym_futbol_tpu_torch import recurrent_ppo as rppo  # noqa: E402
 from gym_futbol_tpu_torch.models.policy import ActorCritic  # noqa: E402
 from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic  # noqa: E402
 from gym_futbol_tpu_torch.ops.fused_collect import feature_rows  # noqa: E402
@@ -50,6 +53,23 @@ def runner(seed: int):
 def iterate(r, cfg):
     return ppo.train_iteration(r, P, cfg, collect_fn=ppo.collect_rollout_fused,
                                update_fn=ppo.update_epochs_fused)
+
+
+RECURRENT_STAGES = ("rppo.collect", "rppo.gae", "rppo.update")
+
+
+def recurrent_runner(seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    model = RecurrentActorCritic(P.players_per_team, F, (16,), lstm_size=4,
+                                 device="cpu")
+    cfg = rppo.RecurrentPPOConfig(rollout_steps=2, shuffle_block=8, epochs=2,
+                                  minibatches=2)
+    return rppo.init_recurrent_ppo_runner(gen, model, P, cfg, 16), cfg
+
+
+def iterate_recurrent(r, cfg):
+    return rppo.train_iteration_recurrent_ppo(
+        r, P, cfg, collect_fn=a2c.collect_recurrent_rollout_fused)
 
 
 def packed_state(seed: int = 0):
@@ -112,6 +132,50 @@ def test_profiler_leaves_the_numbers_alone():
         assert torch.equal(a, b)
     assert plain[2].keys() == traced[2].keys()
     assert all(torch.equal(plain[2][k], traced[2][k]) for k in plain[2])
+
+
+def test_recurrent_span_off_reaches_no_profiler(monkeypatch):
+    """No profiler: the recurrent iteration's stages and K5's wrapper
+    take the shared no-op and never reach ``record_function``."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) reached with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert profiling.span("rppo.update") is profiling.NO_SPAN
+    r, cfg = recurrent_runner(0)
+    iterate_recurrent(r, cfg)
+
+
+def test_recurrent_iteration_spans():
+    """One recurrent PPO iteration on K5's plain version under the
+    profiler: its three stages once each, in order, apart; K5's wrapper
+    inside the collect; none of the MLP learner's stages."""
+    r, cfg = recurrent_runner(3)
+    with cpu_profile() as prof:
+        iterate_recurrent(r, cfg)
+    got = spans(prof, ("rppo.", "ppo.", "ops."))
+    stages = [s for s in got if s[0].startswith("rppo.")]
+    assert [s[0] for s in stages] == list(RECURRENT_STAGES)
+    assert all(a[2] <= b[1] for a, b in zip(stages, stages[1:]))
+    k5 = [s for s in got if s[0] == "ops.fused_recurrent_collect"]
+    assert len(k5) == 1 and inside(k5[0], stages[0])
+    assert len(got) == len(stages) + len(k5)
+
+
+def test_profiler_leaves_the_recurrent_numbers_alone():
+    """Two recurrent iterations with a profiler open and two without,
+    from the same seed: parameters and the metrics bitwise equal."""
+    def two(profiled: bool):
+        r, cfg = recurrent_runner(4)
+        with cpu_profile() if profiled else profiling.NO_SPAN:
+            for _ in range(2):
+                r, metrics = iterate_recurrent(r, cfg)
+        return [p.detach() for p in r.optimizer.params], metrics
+
+    plain, traced = two(False), two(True)
+    assert all(torch.equal(a, b) for a, b in zip(plain[0], traced[0], strict=True))
+    assert plain[1].keys() == traced[1].keys()
+    assert all(torch.equal(plain[1][k], traced[1][k]) for k in plain[1])
 
 
 def _call_fused_rollout():
