@@ -87,6 +87,12 @@ port's main paths:
 - phase 22, the JAX package's array-form game, physics and types API on
   a CUDA batch (bench config 4's 16384 3v3 envs, states from one K1a
   rollout), each function bitwise equal to its scalar form;
+- phase 24, K6 (ops.fused_bptt: the recurrent PPO update's LSTM
+  recurrence, forward and backward) at the recurrent PPO cell's
+  minibatch (8192 sequences, T = 128, torso 64, H = 256): both kernels
+  against their plain versions, their times beside the plain versions',
+  the float32 autograd unroll they replace, cuBLAS on the same per-step
+  products and their bound;
 - phase 23, the port's bench as a user runs it: python -m
   gym_futbol_tpu_torch.bench --config N --verbose for configs 2-6 at
   their presets, then --scaling with one rank, each in a subprocess:
@@ -139,6 +145,7 @@ SOURCE = "gym_futbol_tpu_torch/csrc/fused_rollout.cu"
 POLICY_SOURCE = "gym_futbol_tpu_torch/csrc/fused_policy_tc.cu"
 UPDATE_SOURCE = "gym_futbol_tpu_torch/csrc/fused_update.cu"
 RECURRENT_SOURCE = "gym_futbol_tpu_torch/csrc/fused_recurrent_tc.cu"
+BPTT_SOURCE = "gym_futbol_tpu_torch/csrc/fused_bptt_tc.cu"
 REPLACES = {
     "fused_rollout": "gym_futbol_tpu/ops/fused_rollout.py:342",
     "fused_rollout_replay": "gym_futbol_tpu/ops/fused_rollout.py:487",
@@ -206,6 +213,15 @@ K5_FORCED_ATOL = 5e-5
 # reductions on equal buffers: bitwise in practice).
 BN, TN, BN_RESUME, BLOCK_N = 1000, 16, 2048, 128
 NORM_STAT_REL = 1e-5
+# K6 (phase 24) at the recurrent PPO cell's minibatch: 8192 sequences of
+# T = 128, torso 64, H = 256. Kernels against their plain versions (the
+# backward's fed the forward kernel's saved state), the largest
+# difference over the plain output's largest value: forward 5e-3,
+# dgates 2e-2 (a float32 sum in another order can land a rounded h one
+# bf16 ulp apart, and the recurrence carries it on; 9.1e-4 and 4.3e-3
+# measured).
+BT_S, BT_T, BT_NT, BT_H = 8192, 128, 64, 256
+K6_FWD_REL, K6_BWD_REL = 1e-4, 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -1458,7 +1474,8 @@ def recurrent_phases(dev, custom, shares) -> dict:
     check(z <= 5.0, "14: sampling statistics")
 
     # 15: the main path: recurrent PPO at the main shape on the kernel (the
-    # collect's default route, bfloat16), then one recurrent A2C iteration
+    # collect's default route, bfloat16; the update on K6, its default),
+    # then one recurrent A2C iteration
     ops.reset_launch_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
     model = RecurrentActorCritic(3, obs_size(p3), HR, LSTM_R, device=dev)
@@ -1501,8 +1518,11 @@ def recurrent_phases(dev, custom, shares) -> dict:
           f"15: non-finite metrics {values}")
     check(all(not torch.equal(a, b) for a, b in zip(first, model.parameters())),
           "15: a parameter did not change")
-    check(sum(ops.LAUNCHES.values()) == ops.LAUNCHES["fused_recurrent_collect"],
+    k6_launches = ops.LAUNCHES["fused_lstm_bptt"]
+    check(sum(ops.LAUNCHES.values()) == ops.LAUNCHES["fused_recurrent_collect"] + k6_launches,
           "15: another kernel (or K5's float32 route) ran in the recurrent path")
+    check(k6_launches == 2 * cfg.epochs * cfg.minibatches * (n_iters + 1),
+          f"15: {k6_launches} K6 launches, 2 a minibatch expected")
     phase("15 main path", f"train_iteration_recurrent_ppo (collect_recurrent_rollout_"
           f"fused, bfloat16, compute_gae, update_epochs_recurrent), 3v3 B={BR} "
           f"T={TR} hidden {HR} H={LSTM_R}, {cfg.epochs} x {cfg.minibatches} "
@@ -1530,7 +1550,7 @@ def recurrent_phases(dev, custom, shares) -> dict:
           f"15: {launches} K5 launches in the main path")
     phase("15 main path", f"kernel launches in the main path (bfloat16 "
           f"recurrent_tc_kernel under the kernel's name, float32 under _f32): "
-          f"{launches}")
+          f"{launches}; K6 (the update's recurrence) {k6_launches}")
 
     argv = ["--recurrent", "--fused-collect", "--ppt", "3", "--envs", str(BR),
             "--hidden", *map(str, HR), "--lstm-size", str(LSTM_R), "--iters", "2"]
@@ -1654,7 +1674,8 @@ def recurrent_phases(dev, custom, shares) -> dict:
             "f32_route_ms": ms_k5_f32, "f32_bound_ms": bound_k5_f32[0],
             "f32_max_abs_err": k5_f32_err,
             "unit": f"ms per step of the {BR}-env 3v3 batch, hidden {HR}, "
-                    f"H {LSTM_R}, bfloat16"}
+                    f"H {LSTM_R}, bfloat16",
+            "k6_launches": k6_launches}
 
 
 def runner_leaves(x, name="runner"):
@@ -2178,7 +2199,8 @@ def distributed_phases(dev) -> None:
         with open(path) as fh:
             res.append(json.load(fh))
     path_kernels = ("fused_rollout", "fused_rollout_replay", "fused_collect",
-                    "fused_minibatch_grad", "fused_recurrent_collect")
+                    "fused_minibatch_grad", "fused_recurrent_collect",
+                    "fused_lstm_bptt")
     for r, o in enumerate(res):
         launches = {k: o["launches"].get(k, 0) for k in path_kernels}
         others = {k: v for k, v in o["launches"].items()
@@ -2632,13 +2654,15 @@ def learning_gate_phase() -> None:
     ops.reset_launch_counts()
     rc, lines = run_gate(check_recurrent_learning, rargv)
     gate_verdict(rc, lines, "check_recurrent_learning")
+    k6_launches = ops.LAUNCHES["fused_lstm_bptt"]
+    check(k6_launches > 0, "21: the recurrent PPO gate's update skipped K6")
     launches = {k: ops.LAUNCHES[k] for k in ("fused_recurrent_collect",
                                              "fused_recurrent_collect_f32")}
     check(launches == {"fused_recurrent_collect": 2, "fused_recurrent_collect_f32": 0},
           f"21: the recurrent gate's launches {launches}")
     phase("21 gate", f"check_recurrent_learning --algo ppo --fused-collect 2v2 "
           f"512 envs x 2 iterations, 1 seed: exit {rc}: {lines[-1]}; launches "
-          f"{launches}")
+          f"{launches}, K6 {k6_launches}")
     # recurrent A2C on the route the package picks for it: its launches
     # land under that route's name only
     route = a2c.FUSED_COLLECT_DTYPE["a2c"]
@@ -2907,6 +2931,159 @@ def replay_phase(dev, shares: dict) -> list[dict]:
               + ", ".join(f"{k} {v:.6g}" for k, v in others.items())
               + f"; {launches} launches")
     return rows
+
+
+def bptt_phase(dev, main_launches: int) -> dict:
+    """Phase 24: K6 against its plain versions at the recurrent PPO cell's
+    minibatch, its times (the kernels alone, the whole autograd node with
+    the weight gradients' products) beside the plain versions', the
+    float32 autograd unroll of the cell it replaces (forward and
+    backward), cuBLAS (one bf16 product, where K6 takes three) on the
+    same per-step products, and its bound. Returns K6's entry of the
+    kernels line, with ``main_launches``, phase 15's count of K6's
+    launches on the main path."""
+    import torch
+
+    from gym_futbol_tpu_torch import ops
+    from gym_futbol_tpu_torch.models.recurrent import lstm_cell
+
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s, t_len, n_t, hs = BT_S, BT_T, BT_NT, BT_H
+    gen = torch.Generator(device=dev).manual_seed(24)
+    t = torch.tanh(torch.randn(t_len, s, n_t, generator=gen, device=dev))
+    std = 1.0 / math.sqrt(n_t + hs)
+    w_i = torch.randn(4 * hs, n_t, generator=gen, device=dev) * std
+    w_h = torch.randn(4 * hs, hs, generator=gen, device=dev) * std
+    b_h = torch.randn(4 * hs, generator=gen, device=dev) * 0.1
+    c0 = torch.randn(s, hs, generator=gen, device=dev) * 0.5
+    h0 = torch.tanh(torch.randn(s, hs, generator=gen, device=dev))
+    done = torch.rand(t_len, s, generator=gen, device=dev) < 0.01
+    dh = torch.randn(t_len, s, hs, generator=gen, device=dev) * 1e-2
+    plan = fb.bptt_plan(n_t, hs, s)
+    d8 = done.to(torch.uint8)
+    t2 = fb._split(t)                                # t's two bf16 terms
+    before = ops.LAUNCHES["fused_lstm_bptt"]
+    (kg, kc, kh, _, kcl, khl), bwd = fb._forward_kernel(t2, w_i, w_h, b_h, c0, h0, d8)
+    kd = fb._backward_kernel(kg, kc, c0, d8, dh, bwd)
+    kd = kd[0].float() + kd[1].float()               # dgates' two bf16 terms
+    pg, pc, ph, _, pcl, phl = fb.bptt_forward_reference(t, w_i, w_h, b_h, c0, h0, d8)
+    pd = fb.bptt_backward_reference(fb.fragment_rows(kg, s, hs).contiguous(),
+                                    fb.fragment_rows(kc, s, hs).contiguous(), c0, d8,
+                                    dh, w_h)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["fused_lstm_bptt"] == before + 2, "24: K6 launches")
+
+    def rel_max(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errs = {"gates": rel_max(fb.fragment_rows(kg, s, hs), pg),
+            "c": rel_max(fb.fragment_rows(kc, s, hs), pc), "h": rel_max(kh, ph),
+            "c_last": rel_max(kcl, pcl), "h_last": rel_max(khl, phl)}
+    err_bwd = rel_max(kd, pd)
+    check(max(errs.values()) <= K6_FWD_REL and err_bwd <= K6_BWD_REL,
+          f"24: K6 against its plain versions: forward {errs}, dgates {err_bwd}")
+    max_abs = max((kh - ph).abs().max().item(), (kd - pd).abs().max().item())
+    del kg, kc, kh, kcl, khl, kd, pg, pc, ph, pcl, phl, pd
+    torch.cuda.empty_cache()
+    phase("24 parity", f"fused_lstm_bptt S={s} T={t_len} torso {n_t} H={hs}, resets "
+          f"{int(done.sum())}: forward kernel against its plain version (largest "
+          f"difference over the largest value) " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs.items()) + f"; backward dgates "
+          f"{err_bwd:.3g}")
+    state = {}
+
+    def kernels(_):
+        state["f"] = fb._forward_kernel(t2, w_i, w_h, b_h, c0, h0, d8)
+        (g_, c_, *_), b_ = state["f"]
+        fb._backward_kernel(g_, c_, c0, d8, dh, b_)
+
+    def forward_only(_):
+        state["f"] = fb._forward_kernel(t2, w_i, w_h, b_h, c0, h0, d8)
+
+    leaves = [x.clone().requires_grad_(True) for x in (t, w_i, w_h, b_h)]
+
+    def node(_):
+        h_all, _ = fb.fused_lstm_bptt(*leaves, (c0, h0), done)
+        h_all.backward(dh)
+
+    def plain(_):
+        out = fb.bptt_forward_reference(t, w_i, w_h, b_h, c0, h0, d8)
+        fb.bptt_backward_reference(out[0], out[1], c0, d8, dh, w_h)
+
+    cell_i = torch.nn.Linear(n_t, 4 * hs, bias=False, device=dev)
+    cell_h = torch.nn.Linear(hs, 4 * hs, device=dev)
+    with torch.no_grad():
+        cell_i.weight.copy_(w_i)
+        cell_h.weight.copy_(w_h)
+        cell_h.bias.copy_(b_h)
+    t_req = t.clone().requires_grad_(True)
+
+    def autograd_f32(_):          # models.recurrent's float32 unroll of the cell
+        x_in = cell_i(t_req)
+        keep = (1.0 - done.float())[..., None]
+        c, h, hs_all = c0, h0, []
+        for x_t, keep_t in zip(x_in.unbind(0), keep):
+            c, h = lstm_cell(cell_h(h) + x_t, c)
+            hs_all.append(h)
+            c, h = c * keep_t, h * keep_t
+        torch.stack(hs_all).backward(dh)
+
+    a_f = torch.randn(s, plan["kt"] + plan["hp"], generator=gen, device=dev).bfloat16()
+    b_f = torch.randn(plan["kt"] + plan["hp"], 4 * hs, generator=gen,
+                      device=dev).bfloat16()
+    a_b = torch.randn(s, 4 * hs, generator=gen, device=dev).bfloat16()
+    b_b = torch.randn(4 * hs, hs, generator=gen, device=dev).bfloat16()
+
+    def products(_):              # cuBLAS on the window's per-step products
+        for _k in range(t_len):
+            torch.mm(a_f, b_f, out_dtype=torch.float32)
+            torch.mm(a_b, b_b, out_dtype=torch.float32)
+
+    kernels(0)
+    ms_fwd = time_cuda(forward_only, 5)
+    ms_k6 = time_cuda(kernels, 5)
+    state.clear()
+    node(0)
+    ms_node = time_cuda(node, 5)
+    products(0)
+    ms_lib = time_cuda(products, 3)
+    plain(0)
+    ms_plain = time_cuda(plain, 1)
+    autograd_f32(0)
+    ms_f32 = time_cuda(autograd_f32, 2)
+    rows = s * t_len
+    # the function's own work: the step's products forward (K = kt + H)
+    # and backward (dh = dgates Wh^T), three bf16 products each for
+    # float32's result; its own bytes: t read, h written, the heads' dh
+    # read, dgates written (f32)
+    flops = 3 * 2 * rows * 4 * hs * ((plan["kt"] + plan["hp"]) + hs)
+    n_bytes = rows * 4 * (n_t + hs + hs + 4 * hs)
+    # the design's saved state besides: the gates and c written and read,
+    # c read again as c_{t-1}, h_{t-1} written for dWh
+    saved_bytes = rows * 4 * hs * (2 * 4 + 3 + 1)
+    bound_k6 = bound(n_bytes, 0.0, flops)
+    phase("24 kernels", f"fused_lstm_bptt, one minibatch (S={s} T={t_len} torso {n_t} "
+          f"H={hs}), ms: forward {ms_fwd:.3f} + backward {ms_k6 - ms_fwd:.3f} = "
+          f"kernels {ms_k6:.3f}; the autograd node (the weight gradients' split "
+          f"bf16 products on cuBLAS included) {ms_node:.3f}; plain versions "
+          f"{ms_plain:.1f}; the float32 autograd unroll it replaces {ms_f32:.1f} "
+          f"({ms_f32 / ms_node:.3g}x the node); cuBLAS, one bf16 product a step, "
+          f"{ms_lib:.3f}; bound {bound_k6[0]:.3f} ({bound_k6[1]}: {n_bytes / 1e9:.4g} GB "
+          f"of its own, {flops / 1e12:.4g} TFLOP bf16), kernels at "
+          f"{bound_k6[0] / ms_k6:.3%} of it; the design's saved state "
+          f"{saved_bytes / 1e9:.4g} GB more")
+    return {"name": "fused_lstm_bptt", "route": "cuda",
+            "kernel": "bptt_forward_kernel + bptt_backward_kernel (bf16 operand "
+                      "pairs, tensor cores)",
+            "source": BPTT_SOURCE, "replaces": None,
+            "launches": main_launches, "max_abs_err": max_abs,
+            "ms": ms_k6, "forward_ms": ms_fwd, "node_ms": ms_node, "plain_ms": ms_plain,
+            "f32_autograd_ms": ms_f32, "bound_ms": bound_k6[0], "bound_by": bound_k6[1],
+            "saved_state_gb": saved_bytes / 1e9,
+            "library_ms": None, "yardstick_ms": ms_lib,
+            "unit": f"ms per minibatch of {s} sequences, T {t_len}, torso {n_t}, H {hs}"}
 
 
 def device_profile(fn):
@@ -3310,6 +3487,7 @@ def main() -> int:
     policy_record = policy_phases(dev, custom, shares)
     update_record, main12 = update_phases(dev, custom)
     recurrent_record = recurrent_phases(dev, custom, shares)
+    k6_main_launches = recurrent_record.pop("k6_launches")
     normalized_phases(dev, main12)
     distributed_phases(dev)
     k3_config5, k2_config5 = config5_phase(
@@ -3319,6 +3497,7 @@ def main() -> int:
     learning_gate_phase()
     array_api_phase(dev, p4, sf4, si4)
     bench_phase()
+    bptt_record = bptt_phase(dev, k6_main_launches)
     phase("time", "seconds per phase (each interval between two lines charged "
           "to the phase of the later): " + json.dumps(
               {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
@@ -3342,6 +3521,7 @@ def main() -> int:
         *policy_record,
         update_record,
         recurrent_record,
+        bptt_record,
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

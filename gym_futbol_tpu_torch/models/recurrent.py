@@ -101,12 +101,31 @@ class RecurrentActorCritic(nn.Module):
         c, h = lstm_cell(self.cell_h(h) + self.cell_i(self._torso(obs)), c)
         return (c, h), self._heads(h)
 
-    def unroll(self, carry, obs: torch.Tensor, done: torch.Tensor):
+    def unroll(self, carry, obs: torch.Tensor, done: torch.Tensor,
+               compute_dtype=None):
         """:meth:`forward` over a window: ``obs`` ``[T, S, obs_dim]``, the
         carry zeroed after step t where ``done[t]`` ``[S]``. The torso and
         the input kernels run once over all T steps (they do not depend
         on the carry). Returns (carry after the window, (logits ``[T, S,
-        G*5]``, value ``[T, S]``))."""
+        G*5]``, value ``[T, S]``)).
+
+        ``compute_dtype`` None or float32: the cell step by step under
+        autograd. bfloat16: the recurrence forward and backward in K6
+        (:func:`gym_futbol_tpu_torch.ops.fused_bptt.fused_lstm_bptt`: the
+        kernels on a CUDA tensor, their plain version on the CPU), its
+        products on the tensor cores from bf16 operand pairs (hi + lo)
+        held to float32's result; the torso and the heads in float32 as
+        on the other route; the carry returned carries no gradient."""
+        if compute_dtype == torch.bfloat16:
+            from ..ops.fused_bptt import fused_lstm_bptt
+
+            h_all, carry = fused_lstm_bptt(self._torso(obs), self.cell_i.weight,
+                                           self.cell_h.weight, self.cell_h.bias, carry,
+                                           done)
+            return carry, self._heads(h_all)
+        if compute_dtype not in (None, torch.float32):
+            raise ValueError("compute_dtype must be None, torch.float32 or "
+                             "torch.bfloat16")
         x_in = self.cell_i(self._torso(obs))
         keep = (1.0 - done.to(x_in.dtype))[..., None]
         hs = []

@@ -260,5 +260,23 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_update_tc.restype = i
+    lib.futbol_bptt_forward_tc.argtypes = [
+        p, p, p, i, p,        # t's fragments, Wi/Wh fragments (hi, lo), their
+                              # units, bias
+        p, p, p,              # done (u8 [T, S]), c0, h0
+        p, p, p, p, p, p, p,  # gates, c (fragment order), h, h_{t-1} (hi,
+                              # lo), c and h after the window
+        i, i, i, i,           # S, T, kt, H
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_bptt_forward_tc.restype = i
+    lib.futbol_bptt_backward_tc.argtypes = [
+        p, p, p, p, p,        # gates, c (fragment order), c0, done, dh of every step
+        p, p, i,              # fragments of Wh^T (hi, lo), their units
+        p, p,                 # dgates (hi, lo: bf16 [T, S, H, 4])
+        i, i, i,              # S, T, H
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_bptt_backward_tc.restype = i
     _LIB = lib
     return lib

@@ -34,12 +34,14 @@ from ..utils.profiling import spanned
 # wrapper adds one where it launches its kernel. The policy wrappers
 # count their bfloat16 tensor-core route under their own name and their
 # float32 route under ``<name>_f32``; the update its tensor-core route
-# under its name and its CUDA-core chain under ``<name>_chain``.
+# under its name and its CUDA-core chain under ``<name>_chain``; K6 each
+# of its two kernels (forward, backward) under ``fused_lstm_bptt``.
 LAUNCHES = {"fused_rollout": 0, "fused_rollout_replay": 0,
             "fused_collect": 0, "fused_selfplay_rollout": 0,
             "fused_collect_f32": 0, "fused_selfplay_rollout_f32": 0,
             "fused_minibatch_grad": 0, "fused_minibatch_grad_chain": 0,
-            "fused_recurrent_collect": 0, "fused_recurrent_collect_f32": 0}
+            "fused_recurrent_collect": 0, "fused_recurrent_collect_f32": 0,
+            "fused_lstm_bptt": 0}
 
 
 def reset_launch_counts() -> None:

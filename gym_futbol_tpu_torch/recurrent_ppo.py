@@ -15,7 +15,11 @@ same collect and runner:
   time. An epoch permutes contiguous blocks of ``cfg.shuffle_block``
   sequences (degrading to the largest divisor, as ``ppo``'s blocks), and
   a block count the minibatches do not divide is refused, where the JAX
-  package drops the leftover blocks.
+  package drops the leftover blocks. By default (``compute_dtype``
+  bfloat16) the LSTM recurrence runs forward and backward in K6
+  (:mod:`gym_futbol_tpu_torch.ops.fused_bptt`), its products on the
+  tensor cores from bf16 operand pairs held to float32's result;
+  float32 runs the cell step by step under autograd.
 
 With ``group`` (a ``torch.distributed`` process group over which the
 envs are sharded) each minibatch's gradients and metrics are averaged
@@ -35,8 +39,9 @@ from .a2c import (
     collect_recurrent_rollout,
     init_recurrent_runner,
 )
-from .models.policy import action_log_prob_and_entropy_packed
+from .models.policy import action_log_prob_and_entropy_grouped
 from .models.recurrent import RecurrentActorCritic
+from .ops.fused_actor import check_compute_dtype
 from .ppo import (
     TRAJ_FIELDS,
     PPOConfig,
@@ -92,16 +97,20 @@ def init_recurrent_ppo_runner(
 def recurrent_ppo_loss(
     model: RecurrentActorCritic, traj: Transition, init_carry,
     adv: torch.Tensor, returns: torch.Tensor, cfg: PPOConfig,
+    compute_dtype=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The clipped-surrogate loss over a ``[T, S]`` window of S
     sequences: the model re-run from ``init_carry`` (``[S, H]`` each, the
     carry the behaviour policy started the window with), resetting at the
     window's episode ends as the collect did, so that with unchanged
     weights the ratio is 1. The advantage is normalised over all T*S
-    elements. Returns (total loss, metrics)."""
-    _, (logits, value) = model.unroll(init_carry, traj.obs, traj.done)
-    logp, entropy = action_log_prob_and_entropy_packed(logits, traj.dirs,
-                                                       traj.acts)
+    elements; the log-probs and entropies of all action groups at once
+    (:func:`models.policy.action_log_prob_and_entropy_grouped`).
+    ``compute_dtype``: the unroll's (:meth:`RecurrentActorCritic.unroll`;
+    None, float32 or bfloat16). Returns (total loss, metrics)."""
+    _, (logits, value) = model.unroll(init_carry, traj.obs, traj.done,
+                                      compute_dtype=compute_dtype)
+    logp, entropy = action_log_prob_and_entropy_grouped(logits, traj.dirs, traj.acts)
     return clipped_surrogate(logp, entropy, value, traj.logp, traj.value, adv,
                              returns, cfg)
 
@@ -111,6 +120,7 @@ def update_epochs_recurrent(
     init_carry, adv: torch.Tensor, returns: torch.Tensor,
     generator: torch.Generator, cfg: PPOConfig,
     perms: torch.Tensor | None = None, group=None,
+    compute_dtype=torch.bfloat16,
 ) -> dict[str, torch.Tensor]:
     """``cfg.epochs`` x ``cfg.minibatches`` optimiser steps of
     :func:`recurrent_ppo_loss`, minibatched over the sequence axis in
@@ -120,8 +130,13 @@ def update_epochs_recurrent(
     ``init_carry`` ``[S, H]`` each. Raises if the minibatches do not
     divide the block count. With ``group`` each step's gradients and
     metrics are averaged over the ranks first (:func:`ppo.average_grads`).
-    Updates ``model`` in place; returns each metric's mean over the
-    steps."""
+    ``compute_dtype``: bfloat16 (the default, as the fused collect's:
+    the recurrence forward and backward in K6,
+    :func:`ops.fused_bptt.fused_lstm_bptt`, its products from bf16
+    operand pairs held to float32's result) or float32 (the cell step by
+    step under autograd). Updates ``model`` in place; returns each
+    metric's mean over the steps."""
+    check_compute_dtype(compute_dtype)
     t, s = traj.reward.shape
     block = _shuffle_block_for(s, cfg)
     n_blocks = s // block
@@ -149,7 +164,7 @@ def update_epochs_recurrent(
             loss, metrics = recurrent_ppo_loss(
                 model, Transition(**{k: take(v) for k, v in fields.items()}),
                 tuple(c[idx].reshape(mb, -1) for c in carry_blk),
-                take(adv_blk), take(ret_blk), cfg)
+                take(adv_blk), take(ret_blk), cfg, compute_dtype=compute_dtype)
             loss.backward()
             metrics = average_grads(optimizer.params, {
                 k: v.detach() for k, v in metrics.items()}, group)

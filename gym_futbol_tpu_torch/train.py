@@ -15,7 +15,9 @@ one full-batch RMSProp step. One JSON record per logged iteration, then a
 ``--fused-collect`` collects with the ``fused_collect`` kernel (with
 ``--recurrent``: ``fused_recurrent_collect``) and, for feed-forward PPO
 unless ``--no-fused-update``, updates with the ``fused_minibatch_grad``
-kernels (bfloat16 operands); otherwise both run as plain PyTorch.
+kernels (bfloat16 operands), and for recurrent PPO runs the update's
+LSTM recurrence in K6 (``ops.fused_bptt``); otherwise both run as plain
+PyTorch.
 ``--recurrent`` trains the LSTM actor-critic: ``--algo ppo`` the
 sequence-minibatched clipped surrogate (``recurrent_ppo``), ``--algo
 a2c`` full-batch BPTT. ``--rollout-steps`` defaults to 16 with
@@ -218,8 +220,15 @@ def _run(args):
             cfg = rppo.RecurrentPPOConfig(**kw)
             runner = rppo.init_recurrent_ppo_runner(
                 gen, model, env_params, cfg, args.envs, total_iters)
+            # the update runs at the collect's precision: K6 behind the
+            # fused collect, float32 autograd behind the plain one
+            update_fn = functools.partial(
+                rppo.update_epochs_recurrent, compute_dtype=getattr(
+                    torch, a2c.FUSED_COLLECT_DTYPE["ppo"])
+                if args.fused_collect else torch.float32)
             iteration_fn = functools.partial(rppo.train_iteration_recurrent_ppo,
-                                             collect_fn=collect_fn)
+                                             collect_fn=collect_fn,
+                                             update_fn=update_fn)
         else:
             cfg = ppo.PPOConfig(**kw)
             runner = ppo.init_runner(

@@ -164,7 +164,8 @@ def scenario_rppo(case, rank, group):
     runner, metrics = _iterate(
         runner, rppo.train_iteration_recurrent_ppo,
         {**case, "collect": a2c.collect_recurrent_rollout,
-         "update": rppo.update_epochs_recurrent},
+         "update": functools.partial(rppo.update_epochs_recurrent,
+                                     compute_dtype=torch.float32)},
         rank, group, env_params, cfg)
     return {"params": {k: v.detach().clone()
                        for k, v in runner.model.named_parameters()},

@@ -33,7 +33,11 @@ random rollout also on states built for the culled contact solver
 replay (G lanes per env, per-env contact lists) on those states at
 1v1-5v5 and custom, on every layout its plan can give and its own, at a
 ragged batch and one smaller than a block: bitwise; a layout the kernel
-does not take raises.
+does not take raises. K6, the recurrent update's LSTM recurrence: both
+kernels against their plain versions at the recurrent PPO cell's
+minibatch and a ragged H = 128 (bounds at the test), the autograd node
+on the card against the same node on the host, the refused shapes, and
+one update on it (two launches and two spans a minibatch).
 """
 
 import importlib
@@ -718,5 +722,156 @@ def test_recurrent_train_iteration_on_kernel(cuda):
         runner, params, cfg, collect_fn=a2c.collect_recurrent_rollout_fused)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["fused_recurrent_collect"] == before + 1
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(not torch.equal(a, b) for a, b in zip(first, model.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# K6: the recurrent update's LSTM recurrence (ops.fused_bptt)
+# ---------------------------------------------------------------------------
+
+
+def _bptt_case(dev, n_seq, t_len, n_t, hs, seed, p_done=0.02):
+    """A torso output in (-1, 1), lecun-scaled cell weights, a bias,
+    non-zero carries, episodes ending inside the window and a gradient of
+    every h_t of the heads' size."""
+    import math
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.tanh(torch.randn(t_len, n_seq, n_t, generator=gen, device=dev))
+    std = 1.0 / math.sqrt(n_t + hs)
+    w_i = torch.randn(4 * hs, n_t, generator=gen, device=dev) * std
+    w_h = torch.randn(4 * hs, hs, generator=gen, device=dev) * std
+    b_h = torch.randn(4 * hs, generator=gen, device=dev) * 0.1
+    c0 = torch.randn(n_seq, hs, generator=gen, device=dev) * 0.5
+    h0 = torch.tanh(torch.randn(n_seq, hs, generator=gen, device=dev))
+    done = torch.rand(t_len, n_seq, generator=gen, device=dev) < p_done
+    dh = torch.randn(t_len, n_seq, hs, generator=gen, device=dev) * 1e-2
+    return t, w_i, w_h, b_h, c0, h0, done, dh
+
+
+def _rel_max(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8192, 128, 64, 256), (1000, 16, 64, 128)],
+                         ids=["cell", "ragged-H128"])
+def test_bptt_kernels_match_plain(cuda, shape):
+    """K6's forward and backward kernels against their plain versions on
+    the card, from non-zero carries with resets inside the window: the
+    recurrent PPO cell's minibatch (8192 sequences, T = 128, torso 64, H =
+    256) and a ragged 1000 at H = 128. The backward's plain version is
+    fed the forward kernel's own saved state; h_{t-1} and dgates are
+    read as the sums of their two bf16 terms. Bounds (largest over the
+    max of the plain output): forward and h_{t-1} 1e-4, dgates 1e-3: both
+    sides take the same split products (hi + lo, about 2^-16), and part
+    only by float32 sums in another order and the hardware exponential;
+    a kernel that lost a product's low terms reads bf16's 9e-4 (gates)
+    and 4e-3 (dgates) here."""
+    from gym_futbol_tpu_torch import ops
+
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    n_seq, t_len, n_t, hs = shape
+    t, w_i, w_h, b_h, c0, h0, done, dh = _bptt_case(cuda, n_seq, t_len, n_t, hs, 1)
+    assert done.any()
+    d8 = done.to(torch.uint8)
+    before = ops.LAUNCHES["fused_lstm_bptt"]
+    (kg, kc, kh, khp, kcl, khl), bwd = fb._forward_kernel(fb._split(t), w_i, w_h, b_h,
+                                                           c0, h0, d8)
+    pg, pc, ph, php, pcl, phl = fb.bptt_forward_reference(t, w_i, w_h, b_h, c0, h0, d8)
+    kd = fb._backward_kernel(kg, kc, c0, d8, dh, bwd)
+    pd = fb.bptt_backward_reference(fb.fragment_rows(kg, n_seq, hs).contiguous(),
+                                    fb.fragment_rows(kc, n_seq, hs).contiguous(),
+                                    c0, d8, dh, w_h)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_lstm_bptt"] == before + 2
+    for got, want in ((fb.fragment_rows(kg, n_seq, hs), pg),
+                      (fb.fragment_rows(kc, n_seq, hs), pc), (kh, ph), (kcl, pcl),
+                      (khl, phl), (khp[0].float() + khp[1].float(), php)):
+        assert torch.isfinite(got).all() and _rel_max(got, want) <= 1e-4
+    kd = kd[0].float() + kd[1].float()      # dgates' two bf16 terms
+    assert torch.isfinite(kd).all() and _rel_max(kd, pd) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_bptt_function_matches_host(cuda):
+    """The whole autograd node on the card (the kernels, then the weight
+    gradients as split bf16 products on cuBLAS) against the same node on the
+    host (the plain versions): h of every step, the carry after the
+    window and the gradients of t and the three weights, 256 sequences,
+    T = 16, H = 128. h within 1e-4 of its max and gradients per tensor
+    within 1e-3 relative (L2), as above."""
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    case = _bptt_case(cuda, 256, 16, 64, 128, 2, p_done=0.05)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        t, w_i, w_h, b_h, c0, h0, done, dh = (x.to(dev) for x in case)
+        leaves = [x.clone().requires_grad_(True) for x in (t, w_i, w_h, b_h)]
+        h_all, carry = fb.fused_lstm_bptt(*leaves, (c0, h0), done)
+        grads = torch.autograd.grad((h_all * dh).sum(), leaves)
+        outs.append([x.detach().cpu() for x in (h_all, *carry, *grads)])
+    for k, (got, want) in enumerate(zip(*outs)):
+        if k < 3:
+            assert _rel_max(got, want) <= 1e-4
+        else:
+            assert ((got - want).norm() / want.norm()).item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hs", [6, 260])
+def test_bptt_refuses_shapes(cuda, hs):
+    """H not a multiple of 4 or 4H over 1024: the card's route raises,
+    naming the float32 route, before any launch."""
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    from gym_futbol_tpu_torch import ops
+
+    t, w_i, w_h, b_h, c0, h0, done, _ = _bptt_case(cuda, 8, 2, 16, hs, 3)
+    before = ops.LAUNCHES["fused_lstm_bptt"]
+    with pytest.raises(ValueError, match=r"compute_dtype=torch\.float32"):
+        fb.fused_lstm_bptt(t, w_i, w_h, b_h, (c0, h0), done)
+    assert ops.LAUNCHES["fused_lstm_bptt"] == before
+
+
+@pytest.mark.cuda
+def test_recurrent_update_on_bptt_kernels(cuda):
+    """One ``update_epochs_recurrent`` call on its default route, 2 epochs
+    x 2 minibatches: K6's launches advance by 2 a minibatch, each
+    forward and backward is the span ``ops.fused_lstm_bptt``; finite
+    metrics, every parameter moved."""
+    from torch.autograd import DeviceType
+
+    from gym_futbol_tpu_torch import obs_size, ops, ppo
+    from gym_futbol_tpu_torch import recurrent_ppo as rppo
+    from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic
+
+    params = EnvParams(players_per_team=2)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    model = RecurrentActorCritic(2, obs_size(params), (32,), 32, generator=gen, device=cuda)
+    cfg = rppo.RecurrentPPOConfig(rollout_steps=8, epochs=2, minibatches=2, shuffle_block=64)
+    t_len, s = 8, 256
+    idx = torch.randint(0, 5, (t_len, s, 4), generator=gen, device=cuda)
+    traj = ppo.Transition(
+        obs=torch.rand(t_len, s, obs_size(params), generator=gen, device=cuda),
+        dirs=(idx[..., 0] + (idx[..., 2] << 3)).int(),
+        acts=(idx[..., 1] + (idx[..., 3] << 3)).int(),
+        logp=-torch.rand(t_len, s, generator=gen, device=cuda) * 4 - 2,
+        value=torch.randn(t_len, s, generator=gen, device=cuda),
+        reward=torch.randn(t_len, s, generator=gen, device=cuda),
+        done=torch.rand(t_len, s, generator=gen, device=cuda) < 0.1)
+    adv, ret = (torch.randn(t_len, s, generator=gen, device=cuda) for _ in range(2))
+    carry = tuple(torch.randn(s, 32, generator=gen, device=cuda) * 0.3 for _ in range(2))
+    first = [p.detach().clone() for p in model.parameters()]
+    before = ops.LAUNCHES["fused_lstm_bptt"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        metrics = rppo.update_epochs_recurrent(
+            model, rppo.make_optimizer(model, cfg), traj, carry, adv, ret, gen, cfg)
+        torch.cuda.synchronize()
+    n_mb = cfg.epochs * cfg.minibatches
+    assert ops.LAUNCHES["fused_lstm_bptt"] == before + 2 * n_mb
+    spans = [e for e in prof.events() if e.name == "ops.fused_lstm_bptt"
+             and e.device_type == DeviceType.CPU]
+    assert len(spans) == 2 * n_mb
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(first, model.parameters()))

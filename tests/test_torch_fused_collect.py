@@ -444,7 +444,8 @@ def test_cpu_path_never_builds(monkeypatch):
                             "fused_minibatch_grad": 0,
                             "fused_minibatch_grad_chain": 0,
                             "fused_recurrent_collect": 0,
-                            "fused_recurrent_collect_f32": 0}
+                            "fused_recurrent_collect_f32": 0,
+                            "fused_lstm_bptt": 0}
 
 
 def test_philox_sampling_statistics():

@@ -213,7 +213,8 @@ def test_cpu_path_never_builds(monkeypatch):
                             "fused_minibatch_grad": 0,
                             "fused_minibatch_grad_chain": 0,
                             "fused_recurrent_collect": 0,
-                            "fused_recurrent_collect_f32": 0}
+                            "fused_recurrent_collect_f32": 0,
+                            "fused_lstm_bptt": 0}
     for x, y in zip(out1, out2):
         assert torch.equal(x, y)
     assert not torch.equal(out1[2], out3[2])

@@ -351,7 +351,7 @@ def test_update_epochs_recurrent_matches_jax():
     tmodel = recurrent_actor_critic_from_flax(variables, 2, device="cpu")
     opt = trppo.make_optimizer(tmodel, tcfg)
     tm = trppo.update_epochs_recurrent(tmodel, opt, *t, torch.Generator(), tcfg,
-                                       perms=perms)
+                                       perms=perms, compute_dtype=torch.float32)
     assert opt.count == 4
     _assert_trees(_as_flax(tmodel), jparams, rtol=5e-3, atol=5e-5)
     assert set(tm) == set(jm)
@@ -557,12 +557,16 @@ def test_evaluate_recurrent_matches_manual_loop(opponent):
     (["--algo", "ppo"], 16),
     (["--algo", "a2c", "--fused-collect"], 1),
     (["--algo", "ppo", "--iters", "0", "--eval-episodes", "16"], 0),
-], ids=["ppo", "a2c-fused", "eval"])
+    (["--algo", "ppo", "--lstm-size", "6"], 16),
+    (["--algo", "ppo", "--fused-collect"], 16),
+], ids=["ppo", "a2c-fused", "eval", "ppo-h6", "ppo-fused"])
 def test_cli_recurrent_cpu(argv, n_updates):
     """``python -m gym_futbol_tpu_torch.train --recurrent ... --device
     cpu``: T resolves to 16 (not PPO's 128), one record per iteration
     with the JAX CLI's keys, an eval record with --eval-episodes, then
-    the done record."""
+    the done record. Recurrent PPO's update follows the collect: float32
+    behind the plain collect, so an LSTM size K6 refuses (6) still
+    trains; K6's plain version behind the fused collect."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         runner = ttrain.main(["--device", "cpu", "--recurrent", "--ppt", "2",

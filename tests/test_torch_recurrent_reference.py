@@ -152,7 +152,7 @@ def test_update_epochs_match_reference(ppt):
     w0 = leaves(model)
     opt = rppo.make_optimizer(model, cfg)
     metrics = rppo.update_epochs_recurrent(model, opt, traj, carry, adv, ret, gen, cfg,
-                                           perms=perms)
+                                           perms=perms, compute_dtype=torch.float32)
     w = [x.clone() for x in w0]
     ref_loss = ref_rec.update(w, ref_ppo.Adam(w, cfg.lr, cfg.max_grad_norm), seq, perms,
                               vars(cfg), "f32")

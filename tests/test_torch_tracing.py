@@ -147,9 +147,11 @@ def test_recurrent_span_off_reaches_no_profiler(monkeypatch):
 
 
 def test_recurrent_iteration_spans():
-    """One recurrent PPO iteration on K5's plain version under the
-    profiler: its three stages once each, in order, apart; K5's wrapper
-    inside the collect; none of the MLP learner's stages."""
+    """One recurrent PPO iteration on K5's and K6's plain versions under
+    the profiler: its three stages once each, in order, apart; K5's
+    wrapper inside the collect; K6's inside the update, its forward and
+    its backward once a minibatch each; none of the MLP learner's
+    stages."""
     r, cfg = recurrent_runner(3)
     with cpu_profile() as prof:
         iterate_recurrent(r, cfg)
@@ -159,7 +161,10 @@ def test_recurrent_iteration_spans():
     assert all(a[2] <= b[1] for a, b in zip(stages, stages[1:]))
     k5 = [s for s in got if s[0] == "ops.fused_recurrent_collect"]
     assert len(k5) == 1 and inside(k5[0], stages[0])
-    assert len(got) == len(stages) + len(k5)
+    k6 = [s for s in got if s[0] == "ops.fused_lstm_bptt"]
+    assert len(k6) == 2 * cfg.epochs * cfg.minibatches
+    assert all(inside(s, stages[2]) for s in k6)
+    assert len(got) == len(stages) + len(k5) + len(k6)
 
 
 def test_profiler_leaves_the_recurrent_numbers_alone():
