@@ -434,10 +434,11 @@ def policy_phases(dev, custom, shares) -> list[dict]:
         ActorCritic,
         action_log_prob_and_entropy_packed,
     )
-    from gym_futbol_tpu_torch.ops.fused_rollout import n_draws_per_step
+    from gym_futbol_tpu_torch.ops.fused_rollout import n_draws_per_step, split_state
 
     fa = importlib.import_module("gym_futbol_tpu_torch.ops.fused_actor")
     fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+    pol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     p4, p6 = EnvParams(players_per_team=3), EnvParams(players_per_team=2)
@@ -509,12 +510,12 @@ def policy_phases(dev, custom, shares) -> list[dict]:
                         check(k2[-1] == 0.0, f"{ktag}: float32 not bitwise")
                     continue
                 calls = []
-                orig = recording(fc, "sample_with_logp", calls)
+                orig = recording(pol, "sample_with_logp", calls)
                 try:
                     plain = fc.fused_collect_reference(sf, si, w, params,
                                                        compute_dtype=mode, **ref_kw)
                 finally:
-                    fc.sample_with_logp = orig
+                    pol.sample_with_logp = orig
                 err, logp_err, n2 = compare_policy_bf16(
                     k2_out, plain, calls, f"{ktag} collect, {name}", k2_actions,
                     (5, 6, 9), (0, 1, 2, 7, 8))
@@ -623,10 +624,10 @@ def policy_phases(dev, custom, shares) -> list[dict]:
            for _ in range(3)]
     n_calls = 8
     for i in range(n_calls):
-        rows = fa.split_state(sf, si, p6.n_bodies)
+        rows = split_state(sf, si, p6.n_bodies)
         view_probs = []
         for view, wts in ((0, wa), (1, wb)):
-            logits6 = fa.mlp_logit_rows(fa.obs_matrix(*rows[:5], p6, view == 1),
+            logits6 = fa.mlp_logit_rows(pol.obs_matrix(*rows[:5], p6, view == 1),
                                         wts, bf16)
             view_probs.append(torch.softmax(
                 logits6.T.double().reshape(-1, n_groups, 5), -1))
@@ -663,7 +664,7 @@ def policy_phases(dev, custom, shares) -> list[dict]:
     ms4 = time_cuda(collect, iters4)
     BENCH_REFERENCE_MS[4] = ("phase 10", ms4)
     traj, (adv, ret) = box["traj"], box["gae"]
-    check(tuple(traj.obs.shape) == (fc.feature_rows(p4), 2 * T4 * B4)
+    check(tuple(traj.obs.shape) == (pol.feature_rows(p4), 2 * T4 * B4)
           and tuple(adv.shape) == (T4, 2 * B4), "10: collect shapes")
     check(bool(torch.isfinite(adv).all() and torch.isfinite(ret).all()
                and torch.isfinite(traj.obs).all()), "10: non-finite collect")
@@ -703,8 +704,8 @@ def policy_phases(dev, custom, shares) -> list[dict]:
           f"win rates {m['win_rate_a']:.4f} / {m['win_rate_b']:.4f}")
     phase("10 main path", f"kernel launches in the main path (bfloat16 tensor-core "
           f"route under each kernel's name, float32 under _f32): {launches}")
-    plan4 = fa.tc_plan(p4, [H4], B4)
-    plan6 = fa.tc_plan(p6, [H6, H6], B6)
+    plan4 = pol.tc_plan(p4, [H4], B4)
+    plan6 = pol.tc_plan(p6, [H6, H6], B6)
     phase("10 plan", f"fused_collect config 4: {plan4}")
     phase("10 plan", f"fused_selfplay_rollout config 6: {plan6}")
 
@@ -729,8 +730,9 @@ def policy_phases(dev, custom, shares) -> list[dict]:
     ms_k4, ms_k4_f32, ms_k4_again = (time_cuda(k4(mode), 5) / T6
                                      for mode in (bf16, f32, bf16))
     # the plan's choice against the other layouts it weighs (the plan
-    # function replaced for the run, as with update_plan in phase 13)
-    plan_fn, layouts = fa.tc_plan, {}
+    # function replaced, where each wrapper looks it up, for the run, as
+    # with update_plan in phase 13)
+    plan_fn, layouts = pol.tc_plan, {}
     for label, fn, n_steps, alternatives in (
             ("fused_collect config 4", k2, T4, ((128, False), (64, True), (32, True))),
             ("fused_selfplay_rollout config 6", k4, T6,
@@ -953,17 +955,19 @@ def forced_update_plan(compute_dtype=None, smem_bytes=None):
     still computes in the caller's dtype); ``smem_bytes`` lowers the
     shared memory update_plan allows a block (K3_STREAM_SMEM: W2 streamed
     where it would stay resident). The main path never runs inside it."""
+    from gym_futbol_tpu_torch.ops import _build
+
     fu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
-    plan, limit = fu.update_plan, fu._SMEM_BYTES
+    plan, limit = fu.update_plan, _build.SMEM_BYTES
     if compute_dtype is not None:
         fu.update_plan = lambda f_dim, widths, g5, m, mode: plan(
             f_dim, widths, g5, m, compute_dtype)
     if smem_bytes is not None:
-        fu._SMEM_BYTES = smem_bytes
+        _build.SMEM_BYTES = smem_bytes
     try:
         yield
     finally:
-        fu.update_plan, fu._SMEM_BYTES = plan, limit
+        fu.update_plan, _build.SMEM_BYTES = plan, limit
 
 
 def timed_iterations(runner, params, cfg, n_iters: int):
@@ -1022,11 +1026,11 @@ def k2_bound(params, weights, sf, si, n_envs: int, n_steps: int, share):
     of them the torso's and logits head's products on the tensor cores
     (bf16), the biases and the value head in float32. Returns (bf16 bound,
     f32 bound, operations per env-step, of them bf16)."""
-    fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+    pol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
     ops_all = env_step_ops(params, share) + 2 * mlp_ops(weights)
     ops_bf16 = 2 * sum(2 * w.numel() for w in weights[:-2:2])
     n_bytes = (2 * nbytes(sf, si) + nbytes(*weights) + 4 * 2 * n_envs
-               * (fc.feature_rows(params) * n_steps + 6 * n_steps + 1))
+               * (pol.feature_rows(params) * n_steps + 6 * n_steps + 1))
     return (bound(n_bytes / n_steps, n_envs * (ops_all - ops_bf16),
                   n_envs * ops_bf16),
             bound(n_bytes / n_steps, n_envs * ops_all), ops_all, ops_bf16)
@@ -1346,6 +1350,7 @@ def recurrent_phases(dev, custom, shares) -> dict:
     from gym_futbol_tpu_torch.ops.fused_rollout import n_draws_per_step
 
     fr = importlib.import_module("gym_futbol_tpu_torch.ops.fused_recurrent")
+    pol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     p3, p2 = EnvParams(players_per_team=3), EnvParams(players_per_team=2)
@@ -1365,11 +1370,11 @@ def recurrent_phases(dev, custom, shares) -> dict:
         """The plain bf16 version, its sampler's (logits, uniforms)
         recorded for the near-tie test."""
         calls = []
-        orig = recording(fr, "sample_with_logp", calls)
+        orig = recording(pol, "sample_with_logp", calls)
         try:
             return fr.fused_recurrent_collect_reference(*args, **kw), calls
         finally:
-            fr.sample_with_logp = orig
+            pol.sample_with_logp = orig
 
     # 14: kernel vs plain version from non-zero carries, same uniforms and
     # Philox, in both routes: float32 bitwise, bfloat16 within the bf16
@@ -1734,6 +1739,7 @@ def normalized_phases(dev, main12) -> None:
 
     fc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
     fu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
+    pol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1807,12 +1813,12 @@ def normalized_phases(dev, main12) -> None:
         k_out = ops.fused_collect(sf, si, w_fold, seed, p4, TN, compute_dtype=bf16,
                                   **kw)
         calls = []
-        orig = recording(fc, "sample_with_logp", calls)
+        orig = recording(pol, "sample_with_logp", calls)
         try:
             p_out = fc.fused_collect_reference(sf, si, w_fold, p4, compute_dtype=bf16,
                                                **ref_kw)
         finally:
-            fc.sample_with_logp = orig
+            pol.sample_with_logp = orig
         err, _, _ = compare_policy_bf16(
             k_out, p_out, calls, f"17 folded weights B={BN} T={TN} bf16, {name}",
             (3, 4), (5, 6, 9), (0, 1, 2, 7, 8))

@@ -12,7 +12,12 @@ building at once do not see a half-written file. nvcc's output,
 ``-Xptxas -v`` register and spill report included, is kept beside the
 library as ``<library>.log``.
 
-Nothing here runs at import: the CPU tests import the package freely.
+Every wrapper launches through :func:`launch`, which counts the launch
+in :data:`LAUNCHES` under a counter its module registered
+(:func:`counters`). The card's limits the planners lay kernels out by
+are :data:`SMEM_BYTES` and :data:`SMS`.
+
+Nothing here builds at import: the CPU tests import the package freely.
 """
 
 from __future__ import annotations
@@ -38,6 +43,40 @@ NVCC_FLAGS = (
 )
 
 _LIB: ctypes.CDLL | None = None
+
+SMEM_BYTES = 232448   # shared memory a block may use (H100)
+SMS = 132             # the H100's SMs
+
+# Kernel launches by counter, for every kernel of the package. The policy
+# wrappers count their bfloat16 tensor-core route under their own name
+# and their float32 route under ``<name>_f32``; the update its
+# tensor-core route under its name and its CUDA-core chain under
+# ``<name>_chain``; K6 each of its two kernels (forward, backward) under
+# ``fused_lstm_bptt``.
+LAUNCHES: dict[str, int] = {}
+
+
+def counters(*names: str) -> None:
+    """Register launch counters, each at 0: a kernel module registers
+    its own at import."""
+    for name in names:
+        LAUNCHES.setdefault(name, 0)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch(entry: str, counter: str, *args) -> None:
+    """Call the library's C entry ``entry`` with ``args`` (building the
+    library at first use); raise on a non-zero ``cudaError_t``, else
+    count one launch under ``counter``."""
+    err = getattr(load(), entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"{counter} ({entry}): kernel launch failed with "
+                           f"cudaError_t {err}")
+    LAUNCHES[counter] += 1
 
 
 def _sources(csrc_dir: str = CSRC_DIR, pattern: str = "*.cu") -> list[str]:

@@ -51,16 +51,16 @@ the saved gates and c in the forward kernel's lanes' order
 (:func:`fragment_rows` reads them as ``[T, S, H(, 4)]``); the gate
 gradients unit-major, ``[T, S, H, 4]`` (i, f, g, o of unit u together);
 the weights' columns in K5's gate order
-(:func:`ops.fused_recurrent.recurrent_gate_order`).
+(:func:`ops._policy.recurrent_gate_order`).
 
 On a CUDA tensor the kernels run; on a CPU tensor the plain versions
 :func:`bptt_forward_reference` and :func:`bptt_backward_reference`, the
 same arithmetic as tensor code. Shapes: H a multiple of 4 with 4H at most
-:data:`~gym_futbol_tpu_torch.ops.fused_recurrent.TC_MAX_GATES`
+:data:`~gym_futbol_tpu_torch.ops._policy.TC_MAX_GATES`
 (:func:`check_bptt_shape`), any torso width, number of sequences and
 number of steps.
 
-``LAUNCHES["fused_lstm_bptt"]`` counts the kernels' launches (forward
+``ops.LAUNCHES["fused_lstm_bptt"]`` counts the kernels' launches (forward
 and backward, one each a call); each forward and backward is the span
 ``ops.fused_lstm_bptt`` while a profiler runs.
 """
@@ -73,9 +73,8 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import span
-from .fused_actor import _round_up
-from .fused_recurrent import TC_MAX_GATES, _sigmoid, recurrent_gate_order
-from .fused_rollout import LAUNCHES, _raise_on_error
+from . import _build
+from ._policy import TC_MAX_GATES, recurrent_gate_order, round_up, sigmoid, unit_major
 
 __all__ = [
     "bptt_backward_reference",
@@ -90,6 +89,8 @@ __all__ = [
 ]
 
 ROWS = 64        # sequences a block of either kernel
+
+_build.counters("fused_lstm_bptt")
 
 
 def check_bptt_shape(hsize: int) -> None:
@@ -113,7 +114,7 @@ def bptt_plan(n_t: int, hsize: int, n_seq: int) -> dict:
     the weights stay in L2, so neither grows with the torso: at H = 256
     the forward takes 202,752 bytes and the backward 200,704, within the
     232,448 a block may have."""
-    kt, hp = _round_up(n_t, 16), _round_up(hsize, 16)
+    kt, hp = round_up(n_t, 16), round_up(hsize, 16)
     return {"kt": kt, "hp": hp, "blocks": -(-n_seq // ROWS),
             "smem_forward": 4 * ROWS * (hp + 8) * 2 + ROWS * (hp + 8) * 4,
             "smem_backward": 2 * ROWS * (2 * hp + 8) * 2 + ROWS * (hp + 8) * 4}
@@ -162,15 +163,8 @@ def t_fragments(t2, kt: int) -> torch.Tensor:
     return y.permute(0, 1, 6, 2, 5, 4, 8, 7, 3, 9).contiguous()
 
 
-def _unit_major_rows(w: torch.Tensor) -> torch.Tensor:
-    """``w`` ``[4H, k]`` (gate g's block at rows g H .. g H + H - 1, as
-    the model's cell weights) with its rows unit-major: row 4 u + g."""
-    hs = w.shape[0] // 4
-    return w.reshape(4, hs, -1).transpose(0, 1).reshape(4 * hs, -1)
-
-
 def _from_unit_major(d: torch.Tensor) -> torch.Tensor:
-    """The inverse of :func:`_unit_major_rows` on a gradient laid out
+    """The inverse of :func:`._policy.unit_major` on a gradient laid out
     ``[k, 4H]`` with unit-major columns: ``[4H, k]``, gate blocks."""
     k, hs = d.shape[0], d.shape[1] // 4
     return d.reshape(k, hs, 4).permute(2, 1, 0).reshape(4 * hs, k)
@@ -183,7 +177,7 @@ def _columns(hsize: int, device: torch.device):
     padded units' columns (None without any), and the backward's B
     columns: n16 chunk j holds units 8 j .. 8 j + 7, then hp / 2 + 8 j ..
     hp / 2 + 8 j + 7, warp j's two output octets."""
-    hp = _round_up(hsize, 16)
+    hp = round_up(hsize, 16)
     order = recurrent_gate_order(hsize)
     pad = (order < 0).nonzero().flatten().to(device) if hsize < hp else None
     paired = torch.arange(hp).reshape(2, hp // 16, 8).permute(1, 0, 2).reshape(-1)
@@ -209,7 +203,7 @@ def bptt_pack(w_i: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, kt: int):
     ``w_i`` ``[4H, n_t]``, ``w_h`` ``[4H, H]``, ``b_h`` ``[4H]``: the
     model's ``cell_i.weight``, ``cell_h.weight``, ``cell_h.bias``."""
     hs, n_t = w_h.shape[1], w_i.shape[1]
-    hp = _round_up(hs, 16)
+    hp = round_up(hs, 16)
     cols, pad, paired = _columns(hs, w_i.device)
     with torch.no_grad():
         wc = torch.cat([F.pad(w_i.t(), (0, 0, 0, kt - n_t)),
@@ -218,7 +212,7 @@ def bptt_pack(w_i: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, kt: int):
         if pad is not None:              # padded units' columns: zero
             wc[:, pad] = 0.0
             bias[pad] = 0.0
-        wb = F.pad(_unit_major_rows(w_h.detach()), (0, hp - hs, 0, 4 * (hp - hs)))
+        wb = F.pad(unit_major(w_h.detach()), (0, hp - hs, 0, 4 * (hp - hs)))
         fwd = _fragments_hi_lo(wc)
         bwd = _fragments_hi_lo(wb.index_select(1, paired))
     if any(x.data_ptr() % 16 for x in (*fwd, *bwd, bias)):
@@ -233,7 +227,7 @@ def bptt_pack(w_i: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, kt: int):
 
 def _tanh(x: torch.Tensor) -> torch.Tensor:
     """``2 sigmoid(2 x) - 1``, as the kernels compute tanh."""
-    return 2.0 * _sigmoid(2.0 * x) - 1.0
+    return 2.0 * sigmoid(2.0 * x) - 1.0
 
 
 def bptt_forward_reference(t, w_i, w_h, b_h, c0, h0, done):
@@ -253,7 +247,7 @@ def bptt_forward_reference(t, w_i, w_h, b_h, c0, h0, done):
     for k in range(n_steps):
         hprev[k] = h
         i, f, g, o = (split_mm(torch.cat([t[k], h], 1), wc) + b_h.detach()).chunk(4, 1)
-        i, f, g, o = _sigmoid(i), _sigmoid(f), _tanh(g), _sigmoid(o)
+        i, f, g, o = sigmoid(i), sigmoid(f), _tanh(g), sigmoid(o)
         c_all[k] = f * c + i * g
         h_all[k] = o * _tanh(c_all[k])
         gates[k] = torch.stack([i, f, g, o], -1)
@@ -269,7 +263,7 @@ def bptt_backward_reference(gates, c_all, c0, done, dh_all, w_h):
     flow back through each reset (zero where ``done[t]``);
     ``dh_{t-1} = dgates_t Wh^T`` as :func:`split_mm`."""
     n_steps, n_seq, hs, _ = gates.shape
-    whu = _unit_major_rows(w_h.detach())
+    whu = unit_major(w_h.detach())
     keep = 1.0 - done.float()
     dc = dhn = torch.zeros_like(c0)
     dgates = torch.empty_like(gates)
@@ -300,8 +294,6 @@ def _forward_kernel(t2, w_i, w_h, b_h, c0, h0, done):
     ``t2``: (gates, c (fragment order), h ``[T, S, H]``, h_{t-1} as (hi,
     lo) bf16 ``[T, S, H]``, c and h after the window), and the backward's
     weight fragments."""
-    from . import _build
-
     n_steps, n_seq, n_t = t2[0].shape
     hs = w_h.shape[1]
     plan = bptt_plan(n_t, hs, n_seq)
@@ -314,32 +306,28 @@ def _forward_kernel(t2, w_i, w_h, b_h, c0, h0, done):
     hprev = tuple(c0.new_empty((n_steps, n_seq, hs), dtype=torch.bfloat16)
                   for _ in range(2))
     c_last, h_last = (c0.new_empty((n_seq, hs)) for _ in range(2))
-    err = _build.load().futbol_bptt_forward_tc(
-        tfrag.data_ptr(), wf_hi.data_ptr(), wf_lo.data_ptr(), wf_hi.numel() // 8,
-        bias.data_ptr(), done.data_ptr(), c0.data_ptr(), h0.data_ptr(),
-        gates.data_ptr(), c_all.data_ptr(), h_all.data_ptr(), hprev[0].data_ptr(),
-        hprev[1].data_ptr(), c_last.data_ptr(), h_last.data_ptr(), n_seq, n_steps,
-        plan["kt"], hs, torch.cuda.current_stream(c0.device).cuda_stream)
-    _raise_on_error(err, "fused_lstm_bptt (forward)")
-    LAUNCHES["fused_lstm_bptt"] += 1
+    _build.launch(
+        "futbol_bptt_forward_tc", "fused_lstm_bptt", tfrag.data_ptr(),
+        wf_hi.data_ptr(), wf_lo.data_ptr(), wf_hi.numel() // 8, bias.data_ptr(),
+        done.data_ptr(), c0.data_ptr(), h0.data_ptr(), gates.data_ptr(),
+        c_all.data_ptr(), h_all.data_ptr(), hprev[0].data_ptr(), hprev[1].data_ptr(),
+        c_last.data_ptr(), h_last.data_ptr(), n_seq, n_steps, plan["kt"], hs,
+        torch.cuda.current_stream(c0.device).cuda_stream)
     return (gates, c_all, h_all, hprev, c_last, h_last), bwd
 
 
 def _backward_kernel(gates, c_all, c0, done, dh_all, bwd):
     """The backward kernel: dgates as (hi, lo) bf16 ``[T, S, H, 4]``."""
-    from . import _build
-
     n_steps, n_seq, hs = dh_all.shape
     wb_hi, wb_lo = bwd
     dgates = tuple(dh_all.new_empty((n_steps, n_seq, hs, 4), dtype=torch.bfloat16)
                    for _ in range(2))
-    err = _build.load().futbol_bptt_backward_tc(
-        gates.data_ptr(), c_all.data_ptr(), c0.data_ptr(), done.data_ptr(),
-        dh_all.data_ptr(), wb_hi.data_ptr(), wb_lo.data_ptr(), wb_hi.numel() // 8,
-        dgates[0].data_ptr(), dgates[1].data_ptr(), n_seq, n_steps, hs,
+    _build.launch(
+        "futbol_bptt_backward_tc", "fused_lstm_bptt", gates.data_ptr(),
+        c_all.data_ptr(), c0.data_ptr(), done.data_ptr(), dh_all.data_ptr(),
+        wb_hi.data_ptr(), wb_lo.data_ptr(), wb_hi.numel() // 8, dgates[0].data_ptr(),
+        dgates[1].data_ptr(), n_seq, n_steps, hs,
         torch.cuda.current_stream(dh_all.device).cuda_stream)
-    _raise_on_error(err, "fused_lstm_bptt (backward)")
-    LAUNCHES["fused_lstm_bptt"] += 1
     return dgates
 
 
@@ -398,7 +386,7 @@ class _LstmBptt(torch.autograd.Function):
             d2 = tuple(d.reshape(n_steps * n_seq, 4 * hs) for d in dgates)
             dt = None
             if ctx.needs_input_grad[0]:
-                wiu = _split(_unit_major_rows(w_i.detach()))
+                wiu = _split(unit_major(w_i.detach()))
                 dt = _mm3(d2, wiu).reshape(n_steps, n_seq, n_t)
             d_wi = _from_unit_major(_mm3(tuple(x.reshape(-1, n_t).t() for x in t2), d2))
             d_wh = _from_unit_major(_mm3(tuple(x.reshape(-1, hs).t() for x in hprev), d2))

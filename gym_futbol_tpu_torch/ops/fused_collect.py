@@ -37,53 +37,34 @@ torso raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import env as env_core
 from ..models.policy import N_CHOICES, ActorCritic
 from ..types import EnvParams
 from ..utils.profiling import spanned
-from .fused_actor import (
+from . import _build
+from ._policy import (
     check_compute_dtype,
     check_limits,
     check_mlp,
+    collect_outputs,
+    collect_reference,
     dense_rows,
-    joint_action,
-    obs_matrix,
-    obs_scales,
     pack_mlp,
-    pack_rows,
-    sample_with_logp,
-    step_draws,
     tc_pack,
     tc_plan,
     tc_plan_ints,
 )
-from .fused_rollout import (
-    LAUNCHES,
-    _check_state,
-    _kernel_args,
-    _raise_on_error,
-    check_uniforms,
-    n_draws_per_step,
-    split_state,
-    step_uniforms,
-)
+from .fused_rollout import check_state, check_uniforms, kernel_args, state_args
 
-
-def feature_rows(params: EnvParams) -> int:
-    """F_pad: the observation's F rows rounded up to a multiple of 8."""
-    return -(-env_core.obs_size(params) // 8) * 8
+_build.counters("fused_collect", "fused_collect_f32")
 
 
 def collect_culls(params: EnvParams) -> bool:
     """Whether the bfloat16 kernel runs the env step culled at this team
     size (``csrc/fused_policy_tc.cu``'s ``collect_culls``), as compiled:
     builds the kernels at first use, so it needs the CUDA toolkit."""
-    from . import _build
-
     return bool(_build.load().futbol_collect_tc_culls(params.n_bodies))
 
 
@@ -156,53 +137,10 @@ def fused_collect_reference(
     Returns (statef', statei', obs, dirs, acts, logp, value, reward,
     done, last_value) as listed in the module docstring.
     """
-    if (uniforms is None) == (seed is None):
-        raise ValueError("give exactly one of uniforms, seed")
     check_compute_dtype(compute_dtype)
     _check_weights(weights, params)
-    n, ppt = params.n_bodies, params.players_per_team
-    g = 2 * ppt
-    f, f_pad = env_core.obs_size(params), feature_rows(params)
-    n_draws = n_draws_per_step(params)
-    b = statef.shape[1]
-    if uniforms is not None:
-        n_steps = uniforms.shape[0]
-    px, py, vx, vy, poss, s0, s1, t = split_state(statef, statei, n)
-    obs = statef.new_zeros((2, f_pad, n_steps, b))
-    rows = {k: [] for k in ("dirs", "acts", "logp", "value", "reward", "done")}
-    for k in range(n_steps):
-        u = step_uniforms(uniforms, seed, k, n_draws, b, statef.device)
-        idx = []
-        for v in range(2):
-            x = obs_matrix(px, py, vx, vy, poss, params, v == 1)
-            obs[v, :f, k] = x
-            logits, value = _forward(x, weights, compute_dtype)
-            iv, logp = sample_with_logp(logits, g, u[v * g:(v + 1) * g])
-            idx.append(iv)
-            rows["logp"].append(logp)
-            rows["value"].append(value)
-            dpack, apack = pack_rows(iv, ppt)
-            rows["dirs"].append(dpack)
-            rows["acts"].append(apack)
-        dirs, acts = joint_action(idx[0], idx[1], ppt)
-        theta, noise_x, noise_y = step_draws(u, params)
-        s = env_core.step_scalars(px, py, vx, vy, poss, s0, s1, t, dirs, acts,
-                                  theta, noise_x, noise_y, params)
-        done = s.done.to(torch.int32)
-        rows["reward"] += [s.r0, s.r1]
-        rows["done"] += [done, done]
-        s = env_core.auto_reset_scalars(s)
-        px, py, vx, vy = s.px, s.py, s.vx, s.vy
-        poss, s0, s1, t = s.possession, s.score0, s.score1, s.t
-    last_value = torch.stack([
-        _forward(obs_matrix(px, py, vx, vy, poss, params, v == 1), weights,
-                 compute_dtype)[1]
-        for v in range(2)])
-    per_step = {k: torch.stack(r).reshape(n_steps, 2, b) for k, r in rows.items()}
-    return (torch.stack(px + py + vx + vy),
-            torch.stack([poss, s0, s1, t]).to(torch.int32), obs,
-            per_step["dirs"], per_step["acts"], per_step["logp"],
-            per_step["value"], per_step["reward"], per_step["done"], last_value)
+    return collect_reference(statef, statei, params, n_steps, uniforms, seed,
+                             lambda v, x, last=False: _forward(x, weights, compute_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -224,12 +162,12 @@ def fused_collect(
     f32 ``[n_steps, n_draws, B]``. ``compute_dtype``: bfloat16 (the main
     path, the tensor-core kernel) or float32 (exact, the CUDA-core
     kernel); the layout of each is
-    :func:`gym_futbol_tpu_torch.ops.fused_actor.tc_plan`'s. Returns
+    :func:`gym_futbol_tpu_torch.ops._policy.tc_plan`'s. Returns
     (statef', statei', obs, dirs, acts, logp, value, reward, done,
     last_value).
     """
     check_compute_dtype(compute_dtype)
-    b = _check_state(statef, statei, params)
+    b = check_state(statef, statei, params)
     dims = _check_weights(weights, params)
     if any(w.device != statef.device for w in weights):
         raise ValueError("weights must be on the state's device")
@@ -242,48 +180,24 @@ def fused_collect(
             statef, statei, weights, params, n_steps, uniforms=uniforms,
             seed=None if uniforms is not None else seed,
             compute_dtype=compute_dtype)
-    b, c_consts, stream = _kernel_args(statef, statei, params)
+    b, c_consts, stream = kernel_args(statef, statei, params)
     torso = list(zip(weights[:-4:2], weights[1:-4:2]))
-    f_pad = feature_rows(params)
-    dev = statef.device
-
-    def out(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    sf, si = torch.empty_like(statef), torch.empty_like(statei)
-    obs = out(2, f_pad, n_steps, b)
-    dirs, acts, done = (out(n_steps, 2, b, dtype=torch.int32) for _ in range(3))
-    logp, value, reward = (out(n_steps, 2, b) for _ in range(3))
-    last_value = out(2, b)
-    scales = (ctypes.c_float * 3)(*obs_scales(params))
-    from . import _build
-
-    outs = (obs.data_ptr(), dirs.data_ptr(), acts.data_ptr(), logp.data_ptr(),
-            value.data_ptr(), reward.data_ptr(), done.data_ptr(),
-            last_value.data_ptr(), None if uniforms is None else uniforms.data_ptr(),
-            seed & 0xFFFFFFFF, params.n_bodies, b, n_steps, f_pad,
-            params.substeps, params.solver_iterations, params.max_steps,
-            c_consts, len(c_consts), scales, stream)
-    lib = _build.load()
+    sf, si, state = state_args(statef, statei)
+    outs, tail = collect_outputs(params, statef, n_steps, uniforms, seed, c_consts,
+                                 stream)
     if compute_dtype == torch.float32:
         # torso layers, then the logits and value heads as one layer
         layers = torso + [(torch.cat([weights[-4], weights[-2]], 1),
                            torch.cat([weights[-3], weights[-1]], 0))]
         flat, table = pack_mlp(layers)
-        err = lib.futbol_fused_collect(
-            statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
-            flat.data_ptr(), table, len(layers), *outs)
-        name = "fused_collect_f32"
+        _build.launch("futbol_fused_collect", "fused_collect_f32", *state,
+                      flat.data_ptr(), table, len(layers), *tail)
     else:
         plan = tc_plan(params, [[d[1] for d in dims[:-2]]], b)
         frags, fv, (table,), (wv_off,) = tc_pack(
             [(torso + [(weights[-4], weights[-3])], (weights[-2], weights[-1]))],
             params)
-        err = lib.futbol_fused_collect_tc(
-            statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
-            frags.data_ptr(), frags.numel() // 8, fv.data_ptr(), table,
-            len(torso) + 1, wv_off, tc_plan_ints(plan), *outs)
-        name = "fused_collect"
-    _raise_on_error(err, "fused_collect")
-    LAUNCHES[name] += 1
-    return sf, si, obs, dirs, acts, logp, value, reward, done, last_value
+        _build.launch("futbol_fused_collect_tc", "fused_collect", *state,
+                      frags.data_ptr(), frags.numel() // 8, fv.data_ptr(), table,
+                      len(torso) + 1, wv_off, tc_plan_ints(plan), *tail)
+    return (sf, si, *outs)

@@ -14,7 +14,9 @@ LAYOUT (the JAX package's, without its ``(B//128, 128)`` split):
 
 :func:`fused_rollout` and :func:`fused_rollout_replay` run the plain
 version :func:`fused_rollout_reference` for CPU tensors and launch the
-kernel for CUDA tensors; ``LAUNCHES`` counts the kernel launches.
+kernel for CUDA tensors, counted in ``ops.LAUNCHES``. The state checks
+and packing, the draws and the kernel constants here are those of every
+env-stepping kernel; the policy kernels' modules take them from here.
 """
 
 from __future__ import annotations
@@ -29,24 +31,9 @@ from .. import env as env_core
 from ..physics import dtype_scalar, physics_constants, to_dtype
 from ..types import EnvParams, EnvState
 from ..utils.profiling import spanned
+from . import _build
 
-# Kernel launches by wrapper name, for every kernel of the package; each
-# wrapper adds one where it launches its kernel. The policy wrappers
-# count their bfloat16 tensor-core route under their own name and their
-# float32 route under ``<name>_f32``; the update its tensor-core route
-# under its name and its CUDA-core chain under ``<name>_chain``; K6 each
-# of its two kernels (forward, backward) under ``fused_lstm_bptt``.
-LAUNCHES = {"fused_rollout": 0, "fused_rollout_replay": 0,
-            "fused_collect": 0, "fused_selfplay_rollout": 0,
-            "fused_collect_f32": 0, "fused_selfplay_rollout_f32": 0,
-            "fused_minibatch_grad": 0, "fused_minibatch_grad_chain": 0,
-            "fused_recurrent_collect": 0, "fused_recurrent_collect_f32": 0,
-            "fused_lstm_bptt": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+_build.counters("fused_rollout", "fused_rollout_replay")
 
 
 # ---------------------------------------------------------------------------
@@ -93,19 +80,19 @@ _TWO_PI_F32 = to_dtype(2.0 * math.pi, torch.float32)
 _U1_FLOOR_F32 = to_dtype(1e-7, torch.float32)
 
 
-def _randint5_from(u: torch.Tensor) -> torch.Tensor:
+def randint5_from(u: torch.Tensor) -> torch.Tensor:
     """Uniform int32 in [0, 5) from a uniform [0, 1) draw."""
     return torch.floor(u * 5.0).to(torch.int32)
 
 
-def _normal_from(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+def normal_from(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     """Standard normal via Box-Muller from two uniform draws."""
     u1 = u1.clamp_min(_U1_FLOOR_F32)
     r = torch.sqrt(-2.0 * torch.log(u1))
     return r * torch.cos(_TWO_PI_F32 * u2)
 
 
-def _pm1_from(u: torch.Tensor) -> torch.Tensor:
+def pm1_from(u: torch.Tensor) -> torch.Tensor:
     """Uniform [-1, 1) from a uniform [0, 1) draw."""
     return u * 2.0 - 1.0
 
@@ -207,11 +194,11 @@ def fused_rollout_reference(
         else:
             rows = iter(step_uniforms(uniforms, seed, k, n_draws, b,
                                       statef.device))
-            dirs = [_randint5_from(next(rows)) for _ in range(n_players)]
-            acts = [_randint5_from(next(rows)) for _ in range(n_players)]
-            theta = _normal_from(next(rows), next(rows)) * kick_noise
-            noise_x = [_pm1_from(next(rows)) for _ in range(n)]
-            noise_y = [_pm1_from(next(rows)) for _ in range(n)]
+            dirs = [randint5_from(next(rows)) for _ in range(n_players)]
+            acts = [randint5_from(next(rows)) for _ in range(n_players)]
+            theta = normal_from(next(rows), next(rows)) * kick_noise
+            noise_x = [pm1_from(next(rows)) for _ in range(n)]
+            noise_y = [pm1_from(next(rows)) for _ in range(n)]
         s = env_core.auto_reset_scalars(env_core.step_scalars(
             px, py, vx, vy, poss, s0, s1, t, dirs, acts, theta,
             noise_x, noise_y, params,
@@ -298,7 +285,7 @@ def kernel_constants(params: EnvParams) -> dict[str, float]:
 # ---------------------------------------------------------------------------
 
 
-def _check_state(statef: torch.Tensor, statei: torch.Tensor,
+def check_state(statef: torch.Tensor, statei: torch.Tensor,
                  params: EnvParams) -> int:
     n = params.n_bodies
     if statef.dtype != torch.float32 or statei.dtype != torch.int32:
@@ -328,7 +315,7 @@ def check_uniforms(uniforms, n_steps: int, params: EnvParams, statef) -> None:
         raise ValueError("uniforms must be contiguous")
 
 
-def _kernel_args(statef, statei, params: EnvParams):
+def kernel_args(statef, statei, params: EnvParams):
     """Common checks and arguments for a kernel launch on CUDA tensors:
     (B, the constants as a ctypes array, the current stream)."""
     if statef.device.type != "cuda":
@@ -343,6 +330,22 @@ def _kernel_args(statef, statei, params: EnvParams):
     return statef.shape[1], _constants_array(params), stream
 
 
+def state_args(statef, statei):
+    """Empty outputs (statef', statei') and the four state pointers every
+    env-stepping entry takes first: the state in, then out."""
+    sf, si = torch.empty_like(statef), torch.empty_like(statei)
+    return sf, si, (statef.data_ptr(), statei.data_ptr(), sf.data_ptr(),
+                    si.data_ptr())
+
+
+def step_args(params: EnvParams, b: int, n_steps: int, c_consts, *dims):
+    """What every env-stepping entry takes after its draws (or actions):
+    n_bodies, B, T (then ``dims``), the step's loop counts, the constants
+    and their count."""
+    return (params.n_bodies, b, n_steps, *dims, params.substeps,
+            params.solver_iterations, params.max_steps, c_consts, len(c_consts))
+
+
 @functools.lru_cache(maxsize=64)
 def _constants_array(params: EnvParams):
     """:func:`kernel_constants` as the ctypes array a launch passes, formed
@@ -351,18 +354,6 @@ def _constants_array(params: EnvParams):
     copy it."""
     consts = kernel_constants(params)
     return (ctypes.c_float * len(consts))(*consts.values())
-
-
-def _state_and_reward_out(statef, statei, n_steps: int):
-    """Empty outputs (statef', statei', rewards ``[n_steps, B]``)."""
-    return (torch.empty_like(statef), torch.empty_like(statei),
-            torch.empty((n_steps, statef.shape[1]), dtype=torch.float32,
-                        device=statef.device))
-
-
-def _raise_on_error(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
 
 
 @spanned("ops.fused_rollout")
@@ -377,7 +368,7 @@ def fused_rollout(
     given. Returns (statef', statei', rewards ``[n_steps, B]``): the
     team-0 shaped reward of each step.
     """
-    _check_state(statef, statei, params)
+    check_state(statef, statei, params)
     check_uniforms(uniforms, n_steps, params, statef)
     if statef.device.type == "cpu":
         if uniforms is not None:
@@ -385,20 +376,13 @@ def fused_rollout(
                                            uniforms=uniforms)
         return fused_rollout_reference(statef, statei, params, n_steps,
                                        seed=seed)
-    b, c_consts, stream = _kernel_args(statef, statei, params)
-    sf, si, rew = _state_and_reward_out(statef, statei, n_steps)
-    from . import _build
-
-    lib = _build.load()
-    err = lib.futbol_fused_rollout_random(
-        statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
-        rew.data_ptr(), None if uniforms is None else uniforms.data_ptr(),
-        seed & 0xFFFFFFFF, params.n_bodies, b, n_steps, params.substeps,
-        params.solver_iterations, params.max_steps, c_consts, len(c_consts),
-        stream,
-    )
-    _raise_on_error(err, "fused_rollout")
-    LAUNCHES["fused_rollout"] += 1
+    b, c_consts, stream = kernel_args(statef, statei, params)
+    sf, si, state = state_args(statef, statei)
+    rew = statef.new_empty((n_steps, b))
+    _build.launch(
+        "futbol_fused_rollout_random", "fused_rollout", *state, rew.data_ptr(),
+        None if uniforms is None else uniforms.data_ptr(), seed & 0xFFFFFFFF,
+        *step_args(params, b, n_steps, c_consts), stream)
     return sf, si, rew
 
 
@@ -406,7 +390,6 @@ def fused_rollout(
 # The replay kernel's plan (csrc/fused_rollout.cu, replay_lanes_kernel)
 # ---------------------------------------------------------------------------
 
-REPLAY_SMEM_BYTES = 232448   # shared memory a block may use (H100)
 REPLAY_MAX_THREADS = 256     # kMaxLaneThreads in csrc/fused_rollout.cu
 # (largest batch, lanes per env, threads per block) by players per team:
 # the first row whose batch bound holds (None: any batch). The fastest
@@ -453,12 +436,13 @@ def replay_plan(params: EnvParams, n_envs: int) -> dict:
     """How :func:`fused_rollout_replay` launches its kernel for ``n_envs``
     envs, without a card: ``lanes`` (G) per env and ``threads`` per
     block, from :data:`REPLAY_LAYOUTS` by team size and batch, the
-    threads lowered by a warp at a time until the envs' records fit the
-    shared memory; ``slots``, where the solver's per-constraint data
-    lives ("shared": shared memory, indexed by the constraint's plain
-    index, for the lanes kernel; "registers": G = 0, one thread per env
-    running futbol_step.cuh's sweep over the warp's union of active
-    constraints, PR 1's design, where it measured faster); and the
+    threads lowered by a warp at a time until the envs' records fit a
+    block's shared memory (``_build.SMEM_BYTES``); ``slots``, where the
+    solver's per-constraint data lives ("shared": shared memory, indexed
+    by the constraint's plain index, for the lanes kernel; "registers":
+    G = 0, one thread per env running futbol_step.cuh's sweep over the
+    warp's union of active constraints, PR 1's design, where it measured
+    faster); and the
     launch those give (:func:`replay_launch`). The wrapper passes
     ``lanes`` and ``threads`` to the kernel; the C entry derives the
     rest as :func:`replay_launch` does."""
@@ -469,7 +453,8 @@ def replay_plan(params: EnvParams, n_envs: int) -> dict:
         raise ValueError(f"players_per_team must be one of {sorted(REPLAY_LAYOUTS)}")
     lanes, threads = next((g, t) for most, g, t in REPLAY_LAYOUTS[ppt]
                           if most is None or n_envs <= most)
-    while replay_launch(params.n_bodies, n_envs, lanes, threads)["smem"] > REPLAY_SMEM_BYTES:
+    while replay_launch(params.n_bodies, n_envs, lanes,
+                        threads)["smem"] > _build.SMEM_BYTES:
         threads -= 32
     return dict(lanes=lanes, threads=threads, slots=replay_slots(lanes),
                 **replay_launch(params.n_bodies, n_envs, lanes, threads))
@@ -489,7 +474,7 @@ def fused_rollout_replay(
     ``[T, 2*n_players, B]`` (per step, (dir, act) interleaved per player)
     with zero kick and kickoff noise. Returns (statef', statei', rewards
     ``[T, B]``). The kernel launches as :func:`replay_plan` says."""
-    b = _check_state(statef, statei, params)
+    b = check_state(statef, statei, params)
     n_steps = actions.shape[0]
     shape = (n_steps, 2 * params.n_players, b)
     if tuple(actions.shape) != shape or actions.dtype != torch.int32:
@@ -500,18 +485,13 @@ def fused_rollout_replay(
         return fused_rollout_reference(statef, statei, params, actions=actions)
     if not actions.is_contiguous():
         raise ValueError("actions must be contiguous")
-    b, c_consts, stream = _kernel_args(statef, statei, params)
+    b, c_consts, stream = kernel_args(statef, statei, params)
     plan = replay_plan(params, b)
-    sf, si, rew = _state_and_reward_out(statef, statei, n_steps)
-    from . import _build
-
-    lib = _build.load()
-    err = lib.futbol_fused_rollout_replay(
-        statef.data_ptr(), statei.data_ptr(), sf.data_ptr(), si.data_ptr(),
-        rew.data_ptr(), actions.data_ptr(), params.n_bodies, b, n_steps,
-        params.substeps, params.solver_iterations, params.max_steps,
-        c_consts, len(c_consts), plan["lanes"], plan["threads"], stream,
-    )
-    _raise_on_error(err, "fused_rollout_replay")
-    LAUNCHES["fused_rollout_replay"] += 1
+    sf, si, state = state_args(statef, statei)
+    rew = statef.new_empty((n_steps, b))
+    _build.launch(
+        "futbol_fused_rollout_replay", "fused_rollout_replay", *state,
+        rew.data_ptr(), actions.data_ptr(),
+        *step_args(params, b, n_steps, c_consts), plan["lanes"],
+        plan["threads"], stream)
     return sf, si, rew

@@ -46,7 +46,10 @@ import torch
 
 from ..models.policy import N_CHOICES
 from ..utils.profiling import spanned
-from .fused_rollout import LAUNCHES, _raise_on_error
+from . import _build
+from ._policy import check_compute_dtype, round_up
+
+_build.counters("fused_minibatch_grad", "fused_minibatch_grad_chain")
 
 METRICS = ("pg_loss", "v_loss", "entropy", "approx_kl")
 _LANE = 128
@@ -57,11 +60,6 @@ CHUNK = 4096
 # Samples per block of the kernels' loss pass: one metric partial each.
 _LOSS_THREADS = 256
 _GROUPS = (2, 4, 6, 8, 10)   # action groups the loss kernel is built for
-# Shared memory a block may use (H100): the CUDA-core loss kernel keeps
-# both heads' weights there, [H, G*5 + 1] float32; the tensor-core forward
-# its weights in bf16 (W2 resident or, where that does not fit, a ring of
-# two slabs).
-_SMEM_BYTES = 232448
 # The tensor-core kernels: samples per tile (and the multiple the torso
 # widths are padded to), first-layer units per backward block (and W2's
 # rows per streamed slab), the widest torso layer they take, warps per
@@ -274,10 +272,6 @@ def fused_minibatch_grad_reference(
 # ---------------------------------------------------------------------------
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
 def update_plan(f_dim: int, widths, g5: int, m: int,
                 compute_dtype=torch.bfloat16) -> dict:
     """How :func:`fused_minibatch_grad` runs a minibatch of ``m`` samples
@@ -285,7 +279,9 @@ def update_plan(f_dim: int, widths, g5: int, m: int,
     head, without a card: the route and, for the tensor cores, the padded
     sizes, W2's layout, shared memory, grids and buffer sizes of
     ``csrc/fused_update.cu`` (``fwd_smem``, ``bwd_smem``, ``FwdLayout``,
-    ``BwdLayout``).
+    ``BwdLayout``). A block's shared memory (``_build.SMEM_BYTES``) holds
+    the CUDA-core loss kernel's heads, ``[H, G*5 + 1]`` float32, and the
+    tensor-core forward's weights in bf16.
 
     bfloat16 with one or two torso layers of at most :data:`TC_MAX_WIDTH`
     units whose forward block fits in shared memory takes the tensor-core
@@ -304,9 +300,9 @@ def update_plan(f_dim: int, widths, g5: int, m: int,
                          "samples")
     n_chunks = -(-m // CHUNK)
     plan = dict(route="cuda_cores", n_chunks=n_chunks)
-    f1p = _round_up(f_dim, 16)
-    padded = [_round_up(h, TC_TILE) for h in widths]
-    g5p = _round_up(g5, 16)
+    f1p = round_up(f_dim, 16)
+    padded = [round_up(h, TC_TILE) for h in widths]
+    g5p = round_up(g5, 16)
     hp = padded[-1]
     two = len(widths) == 2
     h1p, h2p = padded[0], padded[1] if two else 0
@@ -322,7 +318,7 @@ def update_plan(f_dim: int, widths, g5: int, m: int,
         return 2 * halves + 4 * floats
 
     layouts = ("resident", "streamed") if two else (None,)   # resident first
-    fits = [(lay, smem_fwd(lay)) for lay in layouts if smem_fwd(lay) <= _SMEM_BYTES]
+    fits = [(lay, smem_fwd(lay)) for lay in layouts if smem_fwd(lay) <= _build.SMEM_BYTES]
     if (compute_dtype == torch.bfloat16 and len(widths) <= 2
             and max(widths) <= TC_MAX_WIDTH and f1p <= 64 and fits):
         layout, smem = fits[0]
@@ -350,7 +346,7 @@ def update_plan(f_dim: int, widths, g5: int, m: int,
                              met=hp * g5p + g5p + 2 * hp + 4),
             bwd_offsets=dict(dw1=0, db1=f1p * h1p, dw2=f1p * h1p + h1p))
         return plan
-    if widths[-1] * (g5 + 1) * 4 > _SMEM_BYTES:
+    if widths[-1] * (g5 + 1) * 4 > _build.SMEM_BYTES:
         raise ValueError(f"the last torso layer ({widths[-1]} wide) and the "
                          f"heads do not fit the loss kernel's shared memory")
     dims = [f_dim, *widths]
@@ -390,8 +386,6 @@ def _run_tensor_cores(weights, obs_fm, rows, adv_n, idx, n_torso, block,
     """The tensor-core kernels on one minibatch: pads and rounds the
     weights, launches ``futbol_fused_update_tc`` and cuts the padded sums
     back to the weights' shapes. Returns (grads, metrics [4])."""
-    from . import _build
-
     if any(t.data_ptr() % 16 for t in (obs_fm, adv_n, *rows)):
         raise ValueError("the tensor-core kernels copy the obs and the per-sample "
                          "rows 16 bytes at a time: each must start on a 16-byte "
@@ -412,10 +406,10 @@ def _run_tensor_cores(weights, obs_fm, rows, adv_n, idx, n_torso, block,
     part_bwd = torch.empty(n_chunks * e_bwd, dtype=f32, device=dev)
     out_fwd = torch.empty(e_fwd, dtype=f32, device=dev)
     out_bwd = torch.empty(e_bwd, dtype=f32, device=dev)
-    lib = _build.load()
-    err = lib.futbol_fused_update_tc(
-        w1.data_ptr(), w2.data_ptr(), wl_p.data_ptr(), b1.data_ptr(),
-        b2.data_ptr(), bl_p.data_ptr(), wv_p.data_ptr(), bv.data_ptr(),
+    _build.launch(
+        "futbol_fused_update_tc", "fused_minibatch_grad", w1.data_ptr(),
+        w2.data_ptr(), wl_p.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+        bl_p.data_ptr(), wv_p.data_ptr(), bv.data_ptr(),
         obs_fm.shape[0], f1p, h1p, h2p, wl.shape[1] // N_CHOICES,
         int(plan["w2_layout"] == "streamed"), obs_fm.data_ptr(),
         obs_fm.shape[1], idx.data_ptr(), idx.shape[0], block,
@@ -423,7 +417,6 @@ def _run_tensor_cores(weights, obs_fm, rows, adv_n, idx, n_torso, block,
         dz.data_ptr(), xb.data_ptr(), part_fwd.data_ptr(), part_bwd.data_ptr(),
         CHUNK, out_fwd.data_ptr(), out_bwd.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_error(err, "fused_minibatch_grad")
     fo, bo = plan["fwd_offsets"], plan["bwd_offsets"]
     widths = [weights[2 * li].shape[1] for li in range(n_torso)]
     h, g5 = widths[-1], wl.shape[1]
@@ -482,8 +475,7 @@ def fused_minibatch_grad(
     (grads in the weights' shapes and order, ``{metric: sum}`` over
     :data:`METRICS`).
     """
-    if compute_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("compute_dtype must be torch.bfloat16 or torch.float32")
+    check_compute_dtype(compute_dtype)
     if obs_fm.device.type == "cpu":
         return fused_minibatch_grad_reference(
             weights, obs_fm, dirs_blk, acts_blk, logp_blk, value_blk, ret_blk,
@@ -509,7 +501,6 @@ def fused_minibatch_grad(
     if plan["route"] == "tensor_cores":
         grads, metrics = _run_tensor_cores(weights, obs_fm, rows, adv_n, idx,
                                            n_torso, block, coefs, plan)
-        LAUNCHES["fused_minibatch_grad"] += 1
         return grads, dict(zip(METRICS, metrics.unbind()))
     w = _pad_first_layer(weights, f_dim)
     dims = [f_dim, *widths]
@@ -517,20 +508,15 @@ def fused_minibatch_grad(
     ws = _workspace(dev, dims, g5, m, plan["partial_floats"])
     grads = [torch.empty_like(t) for t in weights]
     metrics = torch.empty(4, dtype=torch.float32, device=dev)
-    from . import _build
-
-    lib = _build.load()
-    err = lib.futbol_fused_update(
-        _ptrs(w), _ptrs(grads), (ctypes.c_int * len(dims))(*dims), n_torso,
-        f_w, g5, obs_fm.data_ptr(), n, idx.data_ptr(), idx.shape[0], block,
+    _build.launch(
+        "futbol_fused_update", "fused_minibatch_grad_chain", _ptrs(w),
+        _ptrs(grads), (ctypes.c_int * len(dims))(*dims), n_torso, f_w, g5,
+        obs_fm.data_ptr(), n, idx.data_ptr(), idx.shape[0], block,
         *(r.data_ptr() for r in rows), adv_n.data_ptr(), *coefs,
         int(compute_dtype == torch.bfloat16), _ptrs(ws["acts"]),
         ws["dz"].data_ptr(), ws["dlogits"].data_ptr(), ws["dvalue"].data_ptr(),
         ws["partial"].data_ptr(), ws["partial"].numel(), CHUNK,
-        metrics.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on_error(err, "fused_minibatch_grad")
-    LAUNCHES["fused_minibatch_grad_chain"] += 1
+        metrics.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return tuple(grads), dict(zip(METRICS, metrics.unbind()))
 
 

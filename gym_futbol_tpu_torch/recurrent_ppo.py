@@ -41,7 +41,7 @@ from .a2c import (
 )
 from .models.policy import action_log_prob_and_entropy_grouped
 from .models.recurrent import RecurrentActorCritic
-from .ops.fused_actor import check_compute_dtype
+from .ops._policy import check_compute_dtype
 from .ppo import (
     TRAJ_FIELDS,
     PPOConfig,

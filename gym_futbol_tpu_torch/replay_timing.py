@@ -90,10 +90,13 @@ def forced_plan(fr, lanes: int, threads: int):
     """A stand-in for ``replay_plan`` that gives ``lanes`` per env and
     ``threads`` a block, lowered a warp at a time until the block's
     records fit the shared memory, as the plan lowers its own."""
+    import importlib
+
+    limit = importlib.import_module("gym_futbol_tpu_torch.ops._build").SMEM_BYTES
+
     def plan(params, n_envs):
         n = threads
-        while fr.replay_launch(params.n_bodies, n_envs, lanes, n)["smem"] > \
-                fr.REPLAY_SMEM_BYTES:
+        while fr.replay_launch(params.n_bodies, n_envs, lanes, n)["smem"] > limit:
             n -= 32
         return dict(lanes=lanes, threads=n, slots=fr.replay_slots(lanes),
                     **fr.replay_launch(params.n_bodies, n_envs, lanes, n))

@@ -241,6 +241,7 @@ def test_kernel_rejects_bad_inputs(cuda):
 
 tfa = importlib.import_module("gym_futbol_tpu_torch.ops.fused_actor")
 tfc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+tpol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
 
 
 def _policy_case(cuda, params, hidden, n_envs, seed=3):
@@ -369,8 +370,8 @@ def test_policy_kernels_bf16_match_plain(cuda, params, hidden, n_envs, culled,
     assert (ops.LAUNCHES["fused_selfplay_rollout"]
             == before["fused_selfplay_rollout"] + 1)
     calls2, calls4 = [], []
-    sample_with_logp, sample_rows = tfc.sample_with_logp, tfa.sample_rows
-    monkeypatch.setattr(tfc, "sample_with_logp", lambda lg, g, uu: (
+    sample_with_logp, sample_rows = tpol.sample_with_logp, tfa.sample_rows
+    monkeypatch.setattr(tpol, "sample_with_logp", lambda lg, g, uu: (
         calls2.append((lg.clone(), uu.clone())), sample_with_logp(lg, g, uu))[1])
     monkeypatch.setattr(tfa, "sample_rows", lambda lg, g, uu: (
         calls4.append((lg.clone(), uu.clone())), sample_rows(lg, g, uu))[1])
@@ -426,6 +427,7 @@ def test_policy_kernels_reject_bad_inputs(cuda):
 # ---------------------------------------------------------------------------
 
 tfu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
+_build = importlib.import_module("gym_futbol_tpu_torch.ops._build")
 
 
 def _update_case(cuda, ppt, hidden, n_blocks, block, idx, seed=5):
@@ -531,7 +533,7 @@ def test_update_streamed_w2_matches_resident(cuda, monkeypatch):
 
     monkeypatch.setattr(tfu, "update_plan", recorded)
     resident = ops.fused_minibatch_grad(*args, **kw)
-    monkeypatch.setattr(tfu, "_SMEM_BYTES", 200000)
+    monkeypatch.setattr(_build, "SMEM_BYTES", 200000)
     streamed = ops.fused_minibatch_grad(*args, **kw)
     torch.cuda.synchronize()
     assert layouts == ["resident", "streamed"]
@@ -666,8 +668,8 @@ def test_recurrent_kernel_bf16_matches_plain(cuda, params, hidden, lstm, n_envs,
     assert ops.LAUNCHES["fused_recurrent_collect_f32"] == (
         before["fused_recurrent_collect_f32"])
     calls = []
-    sample_with_logp = tfrc.sample_with_logp
-    monkeypatch.setattr(tfrc, "sample_with_logp", lambda lg, g, uu: (
+    sample_with_logp = tpol.sample_with_logp
+    monkeypatch.setattr(tpol, "sample_with_logp", lambda lg, g, uu: (
         calls.append((lg.clone(), uu.clone())), sample_with_logp(lg, g, uu))[1])
     want = tfrc.fused_recurrent_collect_reference(sf, si, w, cc, hh, params,
                                                   uniforms=u)

@@ -45,7 +45,7 @@ from gym_futbol_tpu_torch import EnvParams, obs_size, ppo  # noqa: E402
 from gym_futbol_tpu_torch import recurrent_ppo as rppo  # noqa: E402
 from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic  # noqa: E402
 from gym_futbol_tpu_torch.ops import fused_bptt as fb  # noqa: E402
-from gym_futbol_tpu_torch.ops.fused_recurrent import recurrent_gate_order  # noqa: E402
+from gym_futbol_tpu_torch.ops._policy import recurrent_gate_order  # noqa: E402
 
 BF16 = torch.bfloat16
 
@@ -222,7 +222,7 @@ def test_saved_state_and_carry():
 
 
 def _unpack(frag, kp, np_):
-    """The inverse of ``ops.fused_actor.tc_fragments``: ``[kp, np_]``."""
+    """The inverse of ``ops._policy.tc_fragments``: ``[kp, np_]``."""
     return (frag.reshape(kp // 16, np_ // 16, 8, 4, 2, 2, 2).permute(0, 5, 3, 6, 1, 4, 2)
             .reshape(kp, np_).float())
 

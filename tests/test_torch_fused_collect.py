@@ -65,6 +65,7 @@ jfa = importlib.import_module("gym_futbol_tpu.ops.fused_actor")
 jfc = importlib.import_module("gym_futbol_tpu.ops.fused_collect")
 tfa = importlib.import_module("gym_futbol_tpu_torch.ops.fused_actor")
 tfc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+tpol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
 
 P = JEnvParams(players_per_team=2, kick_noise=0.0, placement_noise=0.0,
                substeps=2, solver_iterations=4, max_steps=6)
@@ -112,7 +113,7 @@ def test_obs_matrix_matches_jax(ref, mirror):
         [vel[:, i, 0] for i in range(n)], [vel[:, i, 1] for i in range(n)]
     want = jfa._obs_matrix(*[[jnp.asarray(r) for r in rr] for rr in rows],
                            jnp.asarray(poss), ref, mirror, B)
-    got = tfa.obs_matrix(*[_state_rows(rr) for rr in rows],
+    got = tpol.obs_matrix(*[_state_rows(rr) for rr in rows],
                          torch.from_numpy(poss), params, mirror)
     np.testing.assert_array_equal(got.numpy(), _np(want))
 
@@ -133,7 +134,7 @@ def test_mlp_sampling_and_unmirror_match_jax_helpers():
     idx, logp = jfc._sample_with_logp(
         jnp.asarray(logits), 4, B, B // 128,
         uniform=lambda: jnp.asarray(next(draws)).reshape(B // 128, 128))
-    tidx, tlogp = tfc.sample_with_logp(torch.from_numpy(logits), 4,
+    tidx, tlogp = tpol.sample_with_logp(torch.from_numpy(logits), 4,
                                        torch.from_numpy(u))
     for a, b in zip(tidx, idx):
         np.testing.assert_array_equal(a.numpy(), _np(b).reshape(B))
@@ -143,7 +144,7 @@ def test_mlp_sampling_and_unmirror_match_jax_helpers():
         assert torch.equal(a, b)
 
     d = np.arange(-2, 8, dtype=np.int32)
-    np.testing.assert_array_equal(tfa.unmirror_dir(torch.from_numpy(d)).numpy(),
+    np.testing.assert_array_equal(tpol.unmirror_dir(torch.from_numpy(d)).numpy(),
                                   _np(jfa._unmirror_dir(jnp.asarray(d))))
 
 
@@ -437,15 +438,7 @@ def test_cpu_path_never_builds(monkeypatch):
     assert e1["mean_team0_reward"] == e2["mean_team0_reward"]
     assert set(e1) == set(teval.evaluate(params, n_envs=8, n_steps=2,
                                          device="cpu"))
-    assert ops.LAUNCHES == {"fused_rollout": 0, "fused_rollout_replay": 0,
-                            "fused_collect": 0, "fused_selfplay_rollout": 0,
-                            "fused_collect_f32": 0,
-                            "fused_selfplay_rollout_f32": 0,
-                            "fused_minibatch_grad": 0,
-                            "fused_minibatch_grad_chain": 0,
-                            "fused_recurrent_collect": 0,
-                            "fused_recurrent_collect_f32": 0,
-                            "fused_lstm_bptt": 0}
+    assert ops.LAUNCHES and set(ops.LAUNCHES.values()) == {0}
 
 
 def test_philox_sampling_statistics():
@@ -500,7 +493,7 @@ def test_pack_mlp_layout():
     of 16, then its bias; offsets in the table."""
     w1, b1 = torch.arange(6.0).reshape(2, 3), torch.tensor([[7.0], [8.0], [9.0]])
     w2, b2 = torch.ones(3, 17), torch.full((17, 1), 2.0)
-    flat, table = tfa.pack_mlp([(w1, b1), (w2, b2)])
+    flat, table = tpol.pack_mlp([(w1, b1), (w2, b2)])
     assert list(table) == [2, 16, 0, 32, 3, 32, 48, 144]
     assert flat.shape == (176,)
     assert torch.equal(flat[:32].reshape(2, 16)[:, :3], w1)
@@ -509,7 +502,7 @@ def test_pack_mlp_layout():
     assert torch.equal(flat[48:144].reshape(3, 32)[:, :17], w2)
     assert (flat[144:161] == 2.0).all() and (flat[161:] == 0).all()
     with pytest.raises(ValueError):
-        tfa.pack_mlp([(torch.zeros(4, 513), torch.zeros(513, 1))])
+        tpol.pack_mlp([(torch.zeros(4, 513), torch.zeros(513, 1))])
 
 
 def test_library_path_hashes_headers(tmp_path):

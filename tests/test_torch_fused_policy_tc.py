@@ -34,12 +34,14 @@ from gym_futbol_tpu_torch import obs_size, ops, vector  # noqa: E402
 from gym_futbol_tpu_torch import ppo as tppo  # noqa: E402
 from gym_futbol_tpu_torch.interop import params_from_reference  # noqa: E402
 from gym_futbol_tpu_torch.models.policy import ActorCritic  # noqa: E402
+from gym_futbol_tpu_torch.ops import _build  # noqa: E402
 
 from _torch_cases import custom_params, game_states  # noqa: E402
 
 jfa = importlib.import_module("gym_futbol_tpu.ops.fused_actor")
 tfa = importlib.import_module("gym_futbol_tpu_torch.ops.fused_actor")
 tfc = importlib.import_module("gym_futbol_tpu_torch.ops.fused_collect")
+tpol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
 
 B = 96
 BF16, F32 = torch.bfloat16, torch.float32
@@ -153,7 +155,7 @@ def test_tc_fragments_layout(shape, kp, np_):
     """Every element of the padded, bf16-rounded matrix lands where the
     kernel's mma.sync B fragments read it; the pad is zero."""
     w = torch.randn(shape, generator=torch.Generator().manual_seed(1))
-    got = _unpack(tfa.tc_fragments(w, kp, np_), 0, kp, np_)
+    got = _unpack(tpol.tc_fragments(w, kp, np_), 0, kp, np_)
     want = torch.zeros(kp, np_)
     want[:shape[0], :shape[1]] = w.to(BF16).float()
     assert torch.equal(got, want)
@@ -194,7 +196,7 @@ def test_tc_pack_matches_plain_forward(ppt, hidden):
             b.normal_(0.0, 0.1, generator=gen)
     x = torch.randn(obs_size(params), 64, generator=gen)
     torso = list(zip(w[:-4:2], w[1:-4:2]))
-    frags, fv, (table,), (wv_off,) = tfa.tc_pack(
+    frags, fv, (table,), (wv_off,) = tpol.tc_pack(
         [(torso + [(w[-4], w[-3])], (w[-2], w[-1]))], params)
     logits, value = _emulate_tc_mlp(x, frags, fv, list(table), wv_off,
                                     len(hidden) + 1)
@@ -212,7 +214,7 @@ def test_tc_pack_two_policies():
     gen = torch.Generator().manual_seed(7)
     wa = tfa.init_mlp(gen, params, (64, 32), device="cpu")
     wb = tfa.init_mlp(gen, params, (64, 32), device="cpu")
-    frags, fv, tables, wv_offs = tfa.tc_pack(
+    frags, fv, tables, wv_offs = tpol.tc_pack(
         [(list(zip(w[::2], w[1::2])), None) for w in (wa, wb)], params)
     assert wv_offs == [-1, -1]
     x = torch.randn(obs_size(params), 32, generator=gen)
@@ -239,16 +241,16 @@ def test_tc_plan_covers_every_accepted_shape(ppt, width, n_envs):
     for hiddens, value in (([(width,)], True), ([(width, width)], True),
                            ([(width,) * 3], True), ([(width, width)] * 2, False),
                            ([()] * 2, False)):
-        plan = tfa.tc_plan(params, hiddens, n_envs)
+        plan = tpol.tc_plan(params, hiddens, n_envs)
         assert plan["route"] == "tensor_cores"
-        assert plan["envs"] in tfa.TC_ENVS and plan["smem"] <= tfa.TC_SMEM_BYTES
+        assert plan["envs"] in tpol.TC_ENVS and plan["smem"] <= _build.SMEM_BYTES
         assert plan["blocks"] * plan["envs"] >= n_envs
         assert all(b % 16 == 0 for b in plan["t_bytes"])
         assert all(ld % 8 == 0 for ld in plan["ld"])
         resident = plan["weights"] == "resident"
         assert plan["smem"] == (plan["frag_bytes"] if resident else 0) + \
             plan["envs"] // 32 * sum(plan["t_bytes"])
-        f32 = tfa.tc_plan(params, hiddens, n_envs, F32)
+        f32 = tpol.tc_plan(params, hiddens, n_envs, F32)
         assert f32["route"] == "cuda_cores" and f32["smem"] <= 2 * 512 * 128
 
 
@@ -258,20 +260,40 @@ def test_tc_plan_main_shapes():
     blocks of 128 envs. Config 6 (2v2, 4096 envs, two (128, 128) MLPs):
     both MLPs resident, 32 envs a block so that 128 SMs get one each."""
     p4 = params_from_reference(JEnvParams(players_per_team=3))
-    plan = tfa.tc_plan(p4, [(256, 256)], 16384)
+    plan = tpol.tc_plan(p4, [(256, 256)], 16384)
     assert (plan["weights"], plan["envs"], plan["blocks"]) == ("resident", 128, 128)
     assert plan["frag_bytes"] == 32 * 256 * 2 + 256 * 256 * 2 + 256 * 32 * 2
     assert plan["ld"] == (264, 0) and plan["t_bytes"] == (64 * 264, 0)
-    assert plan["smem"] == 163840 + 4 * 64 * 264 <= tfa.TC_SMEM_BYTES
+    assert plan["smem"] == 163840 + 4 * 64 * 264 <= _build.SMEM_BYTES
     p6 = params_from_reference(JEnvParams(players_per_team=2))
-    plan = tfa.tc_plan(p6, [(128, 128)] * 2, 4096)
+    plan = tpol.tc_plan(p6, [(128, 128)] * 2, 4096)
     assert (plan["weights"], plan["envs"], plan["blocks"]) == ("resident", 32, 128)
     assert plan["frag_bytes"] == 2 * 49152
     # 5v5 at (256, 256) with 16384 envs: four warps' tiles leave no room
     # for the 188,416 bytes of weights, so they stream
     p5 = params_from_reference(JEnvParams(players_per_team=5))
-    plan = tfa.tc_plan(p5, [(256, 256)], 16384)
+    plan = tpol.tc_plan(p5, [(256, 256)], 16384)
     assert plan["frag_bytes"] == 188416 and plan["weights"] == "streamed"
+
+
+@pytest.mark.parametrize("ppt,hiddens,n_envs,want", [
+    (5, [(256, 256)], 65536, dict(
+        envs=128, blocks=512, smem=67584, blocks_per_sm=2, weights="streamed",
+        frag_bytes=188416, ld=(264, 0), t_bytes=(16896, 0))),
+    (3, [(256, 256)], 16384, dict(
+        envs=128, blocks=128, smem=231424, blocks_per_sm=1, weights="resident",
+        frag_bytes=163840, ld=(264, 0), t_bytes=(16896, 0))),
+    (2, [(128, 128)] * 2, 4096, dict(
+        envs=32, blocks=128, smem=107008, blocks_per_sm=2, weights="resident",
+        frag_bytes=98304, ld=(136, 0), t_bytes=(8704, 0))),
+], ids=["ppo_iter.5v5", "config4", "config6"])
+def test_tc_plan_pinned(ppt, hiddens, n_envs, want):
+    """The whole plan at the shapes the benchmark's cells and the bench
+    configs run: K2 in ``ppo_iter.5v5`` (5v5, (256, 256), 65536 envs:
+    weights streamed, two blocks an SM), config 4's collect and config
+    6's two policies."""
+    params = params_from_reference(JEnvParams(players_per_team=ppt))
+    assert tpol.tc_plan(params, hiddens, n_envs) == dict(route="tensor_cores", **want)
 
 
 def test_compute_dtype_validation():
@@ -297,7 +319,7 @@ def test_compute_dtype_validation():
         lambda d: tppo.collect_rollout_fused(runner, params, cfg, compute_dtype=d),
         lambda d: teval.evaluate_fused(params, mlp, n_envs=8, n_steps=2,
                                        compute_dtype=d),
-        lambda d: tfa.tc_plan(params, [(16,)], 8, d),
+        lambda d: tpol.tc_plan(params, [(16,)], 8, d),
     )
     for call in calls:
         for bad in (torch.float16, torch.float64, "bfloat16"):

@@ -54,6 +54,7 @@ from _torch_cases import custom_params, game_states  # noqa: E402
 
 jfr = importlib.import_module("gym_futbol_tpu.ops.fused_recurrent")
 tfr = importlib.import_module("gym_futbol_tpu_torch.ops.fused_recurrent")
+tpol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
 
 P = JEnvParams(players_per_team=2, substeps=2, solver_iterations=3, max_steps=6)
 P0 = JEnvParams(players_per_team=2, kick_noise=0.0, placement_noise=0.0,
@@ -350,5 +351,5 @@ def test_wrapper_validates_inputs():
         ops.fused_recurrent_collect(sf, si, tuple(t.double() for t in w), cc, hh,
                                     0, params, 2)
     # the kernel's unit-major cell columns: column 4u + g is gate g of unit u
-    perm = tfr._unit_major(3)
+    perm = tpol.unit_major(torch.arange(12))
     assert perm.tolist() == [0, 3, 6, 9, 1, 4, 7, 10, 2, 5, 8, 11]

@@ -42,7 +42,7 @@ from _torch_cases import custom_params, game_states  # noqa: E402
 jfa = importlib.import_module("gym_futbol_tpu.ops.fused_actor")
 jfr = importlib.import_module("gym_futbol_tpu.ops.fused_recurrent")
 tfr = importlib.import_module("gym_futbol_tpu_torch.ops.fused_recurrent")
-tfa = importlib.import_module("gym_futbol_tpu_torch.ops.fused_actor")
+tpol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
 
 B = 96
 BF16, F32 = torch.bfloat16, torch.float32
@@ -106,7 +106,7 @@ def test_recurrent_bf16_rows_match_jax(ref, mirror):
     c0 = rng.normal(0.0, 0.5, (hs, B)).astype(np.float32)
     h0 = rng.normal(0.0, 0.5, (hs, B)).astype(np.float32)
     # the torso
-    t_port = torch.tanh(tfa.dense_rows(torch.from_numpy(x), tw[0], tw[1], BF16))
+    t_port = torch.tanh(tpol.dense_rows(torch.from_numpy(x), tw[0], tw[1], BF16))
     t_jax = jnp.tanh(_jax_dense(x, w[0], w[1], True))
     np.testing.assert_allclose(t_port.numpy(), np.asarray(t_jax), **ROWS_TOL)
     # the cell and heads from the port's torso output (an empty torso here
@@ -161,7 +161,7 @@ def test_gate_order_gives_each_lane_its_units_gates(hs):
     chunks the lane holds units 2t, 2t+1, 8+2t, 9+2t of the group: the
     heads' A fragment of k-step q (a0/a1 columns 2t, 2t+1, a2/a3 8+2t,
     9+2t). Every JAX column appears once; padded units point nowhere."""
-    order = tfr.recurrent_gate_order(hs)
+    order = tpol.recurrent_gate_order(hs)
     hp = -(-hs // 16) * 16
     assert order.shape == (4 * hp,)
     assert sorted(order[order >= 0].tolist()) == list(range(4 * hs))
@@ -218,8 +218,8 @@ def _emulate_cell_loop(x, c0, h0, frags, fv, table, wv_off, n_torso, hs):
                 for lt in range(4):
                     u = 16 * q + 8 * half + 2 * lt + jl
                     col = 16 * (4 * q + 2 * half + jl) + 2 * lt
-                    gi, gf = tfr._sigmoid(pre[col]), tfr._sigmoid(pre[col + 1])
-                    gg, go = torch.tanh(pre[col + 8]), tfr._sigmoid(pre[col + 9])
+                    gi, gf = tpol.sigmoid(pre[col]), tpol.sigmoid(pre[col + 1])
+                    gg, go = torch.tanh(pre[col + 8]), tpol.sigmoid(pre[col + 9])
                     c = gf * (c0[u] if u < hs else torch.zeros(b)) + gi * gg
                     h_new[u] = go * torch.tanh(c)
                     if u < hs:
@@ -300,10 +300,10 @@ def test_recurrent_plan_covers_every_accepted_shape(ppt, hs, n_envs):
     for hidden in ((16,), (128,), (512,), (48, 40), (256, 256), (512, 512, 512),
                    (40, 24, 16)):
         plan = tfr.recurrent_tc_plan(params, hidden, hs, n_envs)
-        assert plan["route"] == "tensor_cores" and plan["envs"] in tfa.TC_ENVS
+        assert plan["route"] == "tensor_cores" and plan["envs"] in tpol.TC_ENVS
         assert plan["blocks"] * plan["envs"] >= n_envs
         assert plan["smem"] == 16 * plan["n_res"] + plan["envs"] // 32 * sum(
-            plan["t_bytes"]) <= tfa.TC_SMEM_BYTES
+            plan["t_bytes"]) <= _build.SMEM_BYTES
         assert 0 <= plan["n_res"] <= plan["frag_bytes"] // 16
         assert all(b % 16 == 0 for b in plan["t_bytes"])
         assert all(ld % 8 == 0 and b >= 64 * ld
@@ -344,6 +344,23 @@ def test_recurrent_plan_mlplstm_shape():
     assert plan["ld"] == (72, 0, 328) and plan["t_bytes"] == (4608, 0, 20992)
     assert plan["n_res"] == (232448 - 4 * (4608 + 20992)) // 16 == 8128
     assert plan["smem"] == 232448
+
+
+@pytest.mark.parametrize("hidden,hs,want", [
+    ((64, 64), 256, dict(n_res=8128, frag_bytes=684032, ld=(72, 0, 328),
+                         t_bytes=(4608, 0, 20992))),
+    ((128,), 128, dict(n_res=9248, frag_bytes=278528, ld=(40, 0, 264),
+                       t_bytes=(4224, 0, 16896))),
+], ids=["recurrent_ppo_iter.3v3", "main"])
+def test_recurrent_plan_pinned(hidden, hs, want):
+    """The whole plan on 16384 3v3 envs at the benchmark's cell
+    (``recurrent_ppo_iter.3v3``: torso (64, 64), H = 256) and at the
+    recurrent main path ((128,), H = 128): one wave of 128 blocks of 128
+    envs, a prefix of the fragments filling the block."""
+    p3 = params_from_reference(JEnvParams(players_per_team=3))
+    assert tfr.recurrent_tc_plan(p3, hidden, hs, 16384) == dict(
+        route="tensor_cores", envs=128, blocks=128, smem=232448, blocks_per_sm=1,
+        weights="prefix", **want)
 
 
 @pytest.mark.parametrize("widths,hs,dtype,match", [

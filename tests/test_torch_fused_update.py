@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 tfu = importlib.import_module("gym_futbol_tpu_torch.ops.fused_update")
+_build = importlib.import_module("gym_futbol_tpu_torch.ops._build")
 
 BLOCK = 128
 
@@ -187,8 +188,9 @@ def test_plan_at_config_5():
     (40, (256, 256), 40, 1024, "tensor_cores", (48, 256, 256, 48), "streamed"),
     (32, (256, 256, 256), 30, 1024, "cuda_cores", None, None),  # three layers
     (32, (512,), 30, 1024, "cuda_cores", None, None),         # wider than 256
+    (48, (256, 256), 50, 1 << 21, "tensor_cores", (48, 256, 256, 64), "streamed"),
 ], ids=["2v2-48-40", "5v5-128", "2v2-16", "3v3-100", "5v5-256", "4v4-256",
-        "three-layers", "wide"])
+        "three-layers", "wide", "ppo_iter.5v5"])
 def test_plan_routes(f_dim, widths, g5, m, route, padded, layout):
     """Torso widths pad to multiples of 64, G*5 and F to multiples of 16;
     W2 stays resident where the forward block fits shared memory and is
@@ -214,7 +216,7 @@ def test_plan_streams_w2_where_resident_does_not_fit(monkeypatch):
     streams W2: the way a test forces the streamed layout where both fit.
     Every other size stays as at config 4."""
     chosen = tfu.update_plan(32, (256, 256), 30, 1 << 20)
-    monkeypatch.setattr(tfu, "_SMEM_BYTES", 200000)
+    monkeypatch.setattr(_build, "SMEM_BYTES", 200000)
     forced = tfu.update_plan(32, (256, 256), 30, 1 << 20)
     assert chosen["w2_layout"] == "resident" and forced["w2_layout"] == "streamed"
     assert (chosen["smem_fwd"], forced["smem_fwd"]) == (229504, 163968)
@@ -225,7 +227,7 @@ def test_plan_streams_w2_where_resident_does_not_fit(monkeypatch):
         k: v for k, v in chosen.items()
         if k not in ("w2_layout", "w2_ring_bytes", "smem_fwd")}
     # below the streamed block, the chain
-    monkeypatch.setattr(tfu, "_SMEM_BYTES", 160000)
+    monkeypatch.setattr(_build, "SMEM_BYTES", 160000)
     assert tfu.update_plan(32, (256, 256), 30, 1 << 20)["route"] == "cuda_cores"
 
 

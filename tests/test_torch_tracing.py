@@ -17,7 +17,7 @@ from gym_futbol_tpu_torch import ppo  # noqa: E402
 from gym_futbol_tpu_torch import recurrent_ppo as rppo  # noqa: E402
 from gym_futbol_tpu_torch.models.policy import ActorCritic  # noqa: E402
 from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic  # noqa: E402
-from gym_futbol_tpu_torch.ops.fused_collect import feature_rows  # noqa: E402
+from gym_futbol_tpu_torch.ops._policy import feature_rows  # noqa: E402
 from gym_futbol_tpu_torch.types import EnvParams  # noqa: E402
 from gym_futbol_tpu_torch.utils import profiling  # noqa: E402
 from gym_futbol_tpu_torch.vector import reset_batch  # noqa: E402
