@@ -7,7 +7,10 @@ port's main paths:
 - phases 3-6, the random-policy rollout (fused_rollout,
   fused_rollout_replay): 4096 2v2 envs for 512 steps (bench config 3),
   a replay of given actions (held bitwise to its plain version at 2v2,
-  custom params, 3v3 and 5v5), and one 5v5 rollout of 65536 envs; the
+  custom params, 3v3 and 5v5), the random rollout held bitwise to its
+  plain version on every route of rollout_plan (table mode at 2v2,
+  custom params and 5v5, Philox at config 3), and one 5v5 rollout of
+  65536 envs; the
   replay timed at 2v2 with 4096 envs (T=16 and 128), 3v3 with 16384 and
   5v5 with 65536 by its plan and with every other lane count, beside
   its bound;
@@ -2903,7 +2906,11 @@ def replay_phase(dev, shares: dict) -> list[dict]:
         sf, si, acts = replay_timing.replay_inputs(params, n_envs, n_steps, 5, dev)
         plan = own(params, n_envs)
         before = ops.LAUNCHES["fused_rollout_replay"]
-        first = replay_timing.time_replay(sf, si, acts, params, 10)
+
+        def replay():
+            ops.fused_rollout_replay(sf, si, acts, params)
+
+        first = replay_timing.time_call(replay, 10)
         others = {}
         for g in (0, 2, 4, 8):
             if g == plan["lanes"]:
@@ -2913,11 +2920,11 @@ def replay_phase(dev, shares: dict) -> list[dict]:
                 fr, g, 32 if g == 0 else plan["threads"])
             try:
                 threads = fr.replay_plan(params, n_envs)["threads"]
-                others[f"G={g},{threads}"] = replay_timing.time_replay(
-                    sf, si, acts, params, 10) / n_steps
+                others[f"G={g},{threads}"] = replay_timing.time_call(
+                    replay, 10) / n_steps
             finally:
                 fr.replay_plan = own
-        last = replay_timing.time_replay(sf, si, acts, params, 10)
+        last = replay_timing.time_call(replay, 10)
         launches = ops.LAUNCHES["fused_rollout_replay"] - before
         check(launches == 11 * (2 + len(others)), f"6: replay launches at {ppt}v{ppt}")
         sh = shares[f"{ppt}v{ppt}"]
@@ -3351,6 +3358,34 @@ def main() -> int:
             compare(got, want, f"3 replay {label} B={n_envs} T={n_steps}, "
                     f"plan {replay_plan(params, n_envs)}", exact=True))
 
+    # 4-5: K1a bitwise against the plain version on the plan's route and
+    # on each other route of rollout_plan, forced as replay_phase forces
+    # the replay's (G = 0: one thread per env, 32 a block; other G at the
+    # plan's block), each launch counted under its route's counter
+    fr = importlib.import_module("gym_futbol_tpu_torch.ops.fused_rollout")
+    own_plan = fr.rollout_plan
+
+    def on_routes(params, n_envs, run, want, label):
+        plan = own_plan(params, n_envs)
+        for g in (None, 0, 2, 4, 8):
+            if g == plan["lanes"]:
+                continue
+            if g is not None:
+                fr.rollout_plan = replay_timing.forced_plan(
+                    fr, g, 32 if g == 0 else plan["threads"])
+            try:
+                route = fr.rollout_plan(params, n_envs)
+                counter = "fused_rollout" if route["lanes"] else "fused_rollout_union"
+                before = ops.LAUNCHES[counter]
+                got = run()
+                check(ops.LAUNCHES[counter] == before + 1,
+                      f"{label}: launch not counted under {counter}")
+                errs["fused_rollout"] = max(errs["fused_rollout"], compare(
+                    got, want, f"{label}, G={route['lanes']} x {route['threads']}"
+                    + (" (plan)" if g is None else ""), exact=True))
+            finally:
+                fr.rollout_plan = own_plan
+
     # 4: table-mode parity, same uniforms to both
     for label, params, n_envs, n_steps in (
             ("default 2v2", p3, B3, T_PARITY), ("custom", custom, B3, T_PARITY),
@@ -3358,17 +3393,16 @@ def main() -> int:
         sf, si, gen = start(params, n_envs, 2)
         u = torch.rand((n_steps, n_draws_per_step(params), n_envs),
                        generator=gen, device=dev)
-        got = ops.fused_rollout(sf, si, 0, params, n_steps, uniforms=u)
-        want = fused_rollout_reference(sf, si, params, uniforms=u)
-        errs["fused_rollout"] = max(errs["fused_rollout"], compare(
-            got, want, f"4 table {label} B={n_envs} T={n_steps}"))
+        on_routes(params, n_envs,
+                  lambda: ops.fused_rollout(sf, si, 0, params, n_steps, uniforms=u),
+                  fused_rollout_reference(sf, si, params, uniforms=u),
+                  f"4 table {label} B={n_envs} T={n_steps}")
 
     # 5: Philox mode at config 3
     sf0, si0, gen = start(p3, B3, 3)
-    errs["fused_rollout"] = max(errs["fused_rollout"], compare(
-        ops.fused_rollout(sf0, si0, 11, p3, T_PARITY),
-        fused_rollout_reference(sf0, si0, p3, T_PARITY, seed=11),
-        f"5 philox vs plain philox B={B3} T={T_PARITY}"))
+    on_routes(p3, B3, lambda: ops.fused_rollout(sf0, si0, 11, p3, T_PARITY),
+              fused_rollout_reference(sf0, si0, p3, T_PARITY, seed=11),
+              f"5 philox vs plain philox B={B3} T={T_PARITY}")
     sf, si, rew = ops.fused_rollout(sf0, si0, 12, p3, T3)
     again = ops.fused_rollout(sf0, si0, 12, p3, T3)
     other = ops.fused_rollout(sf0, si0, 13, p3, T3)
@@ -3434,8 +3468,9 @@ def main() -> int:
     ms5 = time_cuda(lambda i: ops.fused_rollout(sf5, si5, 301 + i, p5, T5), 3)
     check(bool(torch.isfinite(rew5).all()) and rew5.shape == (T5, B5),
           "6: 5v5 rewards")
-    launches = {k: ops.LAUNCHES[k] for k in ("fused_rollout", "fused_rollout_replay")}
-    check(all(n > 0 for n in launches.values()),
+    launches = {k: ops.LAUNCHES[k] for k in ("fused_rollout", "fused_rollout_union",
+                                             "fused_rollout_replay")}
+    check(launches["fused_rollout"] > 0 and launches["fused_rollout_replay"] > 0,
           f"6: the main path skipped a kernel: {launches}")
     phase("6 main path", f"2v2 B={B3} T={T3}: {ms3:.3f} ms/rollout, "
           f"{B3 * T3 / ms3 * 1e3:.6g} env-steps/s ({iters} rollouts)")
@@ -3513,6 +3548,7 @@ def main() -> int:
         {"name": "fused_rollout", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["fused_rollout"],
          "launches": launches["fused_rollout"],
+         "launches_union": launches["fused_rollout_union"],
          "max_abs_err": errs["fused_rollout"],
          "ms": ms3 / T3, "plain_ms": plain_ms / t_plain,
          "bound_ms": bound_k1[0], "bound_by": bound_k1[1], "library_ms": None,

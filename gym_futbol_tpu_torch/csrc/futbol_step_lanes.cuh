@@ -1,6 +1,6 @@
 // The env step's physics for G lanes per env (G in 2, 4, 8), with
-// per-env contact lists: the replay rollout's step (fused_rollout.cu,
-// replay_lanes_kernel). The rules, rewards and auto-reset stay
+// per-env contact lists: both rollouts' step at G > 0 (fused_rollout.cu,
+// random_rollout_kernel and replay_rollout_kernel). The rules, rewards and auto-reset stay
 // futbol_step.cuh's step_dynamics / step_finish, run alike on every lane
 // of the env's group; only the physics (step 4) is replaced, through
 // step_dynamics' Phys parameter, by LanePhysics below.

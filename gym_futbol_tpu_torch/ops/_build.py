@@ -51,8 +51,9 @@ SMS = 132             # the H100's SMs
 # wrappers count their bfloat16 tensor-core route under their own name
 # and their float32 route under ``<name>_f32``; the update its
 # tensor-core route under its name and its CUDA-core chain under
-# ``<name>_chain``; K6 each of its two kernels (forward, backward) under
-# ``fused_lstm_bptt``.
+# ``<name>_chain``; the random rollout its lanes route under its name and
+# its one-thread-per-env route under ``<name>_union``; K6 each of its two
+# kernels (forward, backward) under ``fused_lstm_bptt``.
 LAUNCHES: dict[str, int] = {}
 
 
@@ -158,6 +159,7 @@ def load() -> ctypes.CDLL:
         i, i, i,              # n_bodies, B, T
         i, i, i,              # substeps, solver_iterations, max_steps
         f32p, i,              # host constants, count
+        i, i,                 # plan: lanes per env, threads per block
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_rollout_random.restype = i

@@ -4,8 +4,8 @@ its plain PyTorch version.
 Counterpart of :mod:`gym_futbol_tpu.ops.fused_rollout`. The whole
 rollout (action sampling, kick and kickoff noise, the step pipeline of
 :func:`gym_futbol_tpu_torch.env.step_scalars` with auto-reset) runs in
-one launch of ``csrc/fused_rollout.cu``, one thread per env; the
-replay's runs G lanes per env as :func:`replay_plan` lays it out.
+one launch of ``csrc/fused_rollout.cu``, G lanes per env (or one thread)
+as :func:`rollout_plan` lays it out, and so does the replay's.
 
 LAYOUT (the JAX package's, without its ``(B//128, 128)`` split):
 
@@ -33,7 +33,7 @@ from ..types import EnvParams, EnvState
 from ..utils.profiling import spanned
 from . import _build
 
-_build.counters("fused_rollout", "fused_rollout_replay")
+_build.counters("fused_rollout", "fused_rollout_union", "fused_rollout_replay")
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +366,9 @@ def fused_rollout(
     Draws come from Philox keyed by ``seed`` (an int; use a new seed for
     each call), or from ``uniforms`` f32 ``[n_steps, n_draws, B]`` when
     given. Returns (statef', statei', rewards ``[n_steps, B]``): the
-    team-0 shaped reward of each step.
+    team-0 shaped reward of each step. The kernel launches as
+    :func:`rollout_plan` says, counted under ``fused_rollout`` on G lanes
+    per env and ``fused_rollout_union`` on one thread per env.
     """
     check_state(statef, statei, params)
     check_uniforms(uniforms, n_steps, params, statef)
@@ -377,30 +379,34 @@ def fused_rollout(
         return fused_rollout_reference(statef, statei, params, n_steps,
                                        seed=seed)
     b, c_consts, stream = kernel_args(statef, statei, params)
+    plan = rollout_plan(params, b)
     sf, si, state = state_args(statef, statei)
     rew = statef.new_empty((n_steps, b))
     _build.launch(
-        "futbol_fused_rollout_random", "fused_rollout", *state, rew.data_ptr(),
-        None if uniforms is None else uniforms.data_ptr(), seed & 0xFFFFFFFF,
-        *step_args(params, b, n_steps, c_consts), stream)
+        "futbol_fused_rollout_random",
+        "fused_rollout" if plan["lanes"] else "fused_rollout_union", *state,
+        rew.data_ptr(), None if uniforms is None else uniforms.data_ptr(),
+        seed & 0xFFFFFFFF, *step_args(params, b, n_steps, c_consts),
+        plan["lanes"], plan["threads"], stream)
     return sf, si, rew
 
 
 # ---------------------------------------------------------------------------
-# The replay kernel's plan (csrc/fused_rollout.cu, replay_lanes_kernel)
+# The kernels' plan (csrc/fused_rollout.cu: G lanes per env, or one thread)
 # ---------------------------------------------------------------------------
 
-REPLAY_MAX_THREADS = 256     # kMaxLaneThreads in csrc/fused_rollout.cu
+MAX_LANE_THREADS = 256     # kMaxLaneThreads in csrc/fused_rollout.cu
 # (largest batch, lanes per env, threads per block) by players per team:
 # the first row whose batch bound holds (None: any batch). The fastest
-# layout measured at 4096, 16384 and 65536 envs on the H100
-# (replay_timing.py; PERF.md, K1b), the bounds between them at the
-# geometric midpoints: more lanes an env pay where the batch alone leaves
-# the SMs few warps, and where an env's set-up (its pairs) is long; each
-# lane also runs the env's rules, so large batches of small teams take
-# fewer, and 1v1 from 65536 envs one thread per env (lanes 0, 32
-# threads a block: PR 1's kernel).
-REPLAY_LAYOUTS = {
+# layout measured at 4096, 16384 and 65536 envs on the H100 for the replay
+# (replay_timing.py; PERF.md, K1b) and for the random rollout, whose own
+# fastest are these or within 1% of them (replay_timing.py --mode random;
+# PERF.md, K1a); the bounds between them at the geometric midpoints: more
+# lanes an env pay where the batch alone leaves the SMs few warps, and
+# where an env's set-up (its pairs) is long; each lane also runs the env's
+# rules, so large batches of small teams take fewer, and 1v1 from 65536
+# envs one thread per env (lanes 0, 32 threads a block).
+LANE_LAYOUTS = {
     1: ((8192, 8, 64), (32768, 4, 64), (None, 0, 32)),
     2: ((8192, 8, 64), (32768, 4, 128), (None, 2, 64)),
     3: ((8192, 8, 64), (32768, 4, 128), (None, 4, 64)),
@@ -417,13 +423,13 @@ def env_slot_floats(n_bodies: int) -> int:
     return (6 * n_bodies + 5 * pairs + 3 * 4 * n_bodies) | 1
 
 
-def replay_launch(n_bodies: int, n_envs: int, lanes: int, threads: int) -> dict:
-    """The launch the C entry makes from the plan's ints: ``threads //
+def lanes_launch(n_bodies: int, n_envs: int, lanes: int, threads: int) -> dict:
+    """The launch the C entries make from the plan's ints: ``threads //
     lanes`` envs a block, env e of block k on threads [e * lanes, (e + 1)
     * lanes), enough blocks for ``n_envs``, each env's record in dynamic
     shared memory (and the block's pair table, a byte a pair); lanes 0:
     one thread per env, no shared memory (32 threads a block only: the C
-    entry refuses others)."""
+    entries refuse others)."""
     if lanes == 0:
         return dict(envs=threads, blocks=-(-n_envs // threads), smem=0)
     envs = threads // lanes
@@ -432,37 +438,45 @@ def replay_launch(n_bodies: int, n_envs: int, lanes: int, threads: int) -> dict:
                 + n_bodies * (n_bodies - 1) // 2)
 
 
-def replay_plan(params: EnvParams, n_envs: int) -> dict:
-    """How :func:`fused_rollout_replay` launches its kernel for ``n_envs``
-    envs, without a card: ``lanes`` (G) per env and ``threads`` per
-    block, from :data:`REPLAY_LAYOUTS` by team size and batch, the
-    threads lowered by a warp at a time until the envs' records fit a
-    block's shared memory (``_build.SMEM_BYTES``); ``slots``, where the
-    solver's per-constraint data lives ("shared": shared memory, indexed
-    by the constraint's plain index, for the lanes kernel; "registers":
-    G = 0, one thread per env running futbol_step.cuh's sweep over the
-    warp's union of active constraints, PR 1's design, where it measured
-    faster); and the
-    launch those give (:func:`replay_launch`). The wrapper passes
-    ``lanes`` and ``threads`` to the kernel; the C entry derives the
-    rest as :func:`replay_launch` does."""
+def lanes_slots(lanes: int) -> str:
+    """Where the solver's per-constraint data lives at ``lanes``."""
+    return "registers" if lanes == 0 else "shared"
+
+
+@functools.lru_cache(maxsize=256)
+def rollout_plan(params: EnvParams, n_envs: int) -> dict:
+    """How :func:`fused_rollout` and :func:`fused_rollout_replay` launch
+    their kernels for ``n_envs`` envs, without a card: ``lanes`` (G) per
+    env and ``threads`` per block, from :data:`LANE_LAYOUTS` by team size
+    and batch, the threads lowered by a warp at a time until the envs'
+    records fit a block's shared memory (``_build.SMEM_BYTES``); ``slots``,
+    where the solver's per-constraint data lives ("shared": shared memory,
+    indexed by the constraint's plain index, for the lanes kernels;
+    "registers": G = 0, one thread per env running futbol_step.cuh's sweep
+    over the warp's union of active constraints, the original design,
+    where it measured faster); and the launch those give
+    (:func:`lanes_launch`).
+    The wrappers pass ``lanes`` and ``threads`` to the kernel; the C
+    entries derive the rest as :func:`lanes_launch` does. Formed once per
+    (``EnvParams``, batch), as :func:`_constants_array` is: the dict is
+    shared, read it and do not change it."""
     if n_envs < 1:
         raise ValueError("the batch must hold at least one env")
     ppt = params.players_per_team
-    if ppt not in REPLAY_LAYOUTS:
-        raise ValueError(f"players_per_team must be one of {sorted(REPLAY_LAYOUTS)}")
-    lanes, threads = next((g, t) for most, g, t in REPLAY_LAYOUTS[ppt]
+    if ppt not in LANE_LAYOUTS:
+        raise ValueError(f"players_per_team must be one of {sorted(LANE_LAYOUTS)}")
+    lanes, threads = next((g, t) for most, g, t in LANE_LAYOUTS[ppt]
                           if most is None or n_envs <= most)
-    while replay_launch(params.n_bodies, n_envs, lanes,
-                        threads)["smem"] > _build.SMEM_BYTES:
+    while lanes_launch(params.n_bodies, n_envs, lanes,
+                       threads)["smem"] > _build.SMEM_BYTES:
         threads -= 32
-    return dict(lanes=lanes, threads=threads, slots=replay_slots(lanes),
-                **replay_launch(params.n_bodies, n_envs, lanes, threads))
+    return dict(lanes=lanes, threads=threads, slots=lanes_slots(lanes),
+                **lanes_launch(params.n_bodies, n_envs, lanes, threads))
 
 
-def replay_slots(lanes: int) -> str:
-    """Where the solver's per-constraint data lives at ``lanes``."""
-    return "registers" if lanes == 0 else "shared"
+# The replay's plan is the random rollout's: their fastest layouts are
+# one table. Each wrapper reads its own name, so a caller can force one.
+replay_plan = rollout_plan
 
 
 @spanned("ops.fused_rollout_replay")

@@ -29,7 +29,9 @@ kernels' bf16 route (bounds at the test), also at stable-baselines'
 MlpLstmPolicy widths (torso (64, 64), H = 256, 4H = 1024: the cell's
 fragments mostly read from L2); one recurrent PPO iteration on it. The
 random rollout also on states built for the culled contact solver
-(crowded, on the walls, in the goal mouth, ragged): bitwise. The
+(crowded, on the walls, in the goal mouth, ragged): bitwise, and so at
+1v1-5v5 and custom on every layout its plan can give and its own, in
+Philox and table mode; a layout its kernel does not take raises. The
 replay (G lanes per env, per-env contact lists) on those states at
 1v1-5v5 and custom, on every layout its plan can give and its own, at a
 ragged batch and one smaller than a block: bitwise; a layout the kernel
@@ -150,10 +152,10 @@ REPLAY_CASES = {
     "5v5": EnvParams(players_per_team=5, max_steps=4),
     "custom": CUSTOM.replace(kick_noise=0.0, placement_noise=0.0),
 }
-# every (lanes, threads) the replay plan can give, and each lane count at
-# the smallest block and at 128 threads (lowered until the envs' records
-# fit, as the plan lowers its own)
-REPLAY_ROUTES = sorted({(g, n) for rows in tfr.REPLAY_LAYOUTS.values() for _, g, n in rows}
+# every (lanes, threads) the plan (the replay's and the random rollout's)
+# can give, and each lane count at the smallest block and at 128 threads
+# (lowered until the envs' records fit, as the plan lowers its own)
+REPLAY_ROUTES = sorted({(g, n) for rows in tfr.LANE_LAYOUTS.values() for _, g, n in rows}
                        | {(g, n) for g in (2, 4, 8) for n in (32, 128)} | {(0, 32)})
 
 
@@ -219,6 +221,74 @@ def test_replay_refuses_a_bad_plan(cuda, lanes, threads, monkeypatch):
     with pytest.raises(RuntimeError, match="fused_rollout_replay"):
         ops.fused_rollout_replay(sf, si, acts, params)
     assert ops.LAUNCHES["fused_rollout_replay"] == before
+
+
+# the random rollout's cases: the replay's, the custom params with their noise
+ROLLOUT_CASES = {**REPLAY_CASES, "custom": CUSTOM}
+
+
+def _route_counter(lanes):
+    return "fused_rollout" if lanes else "fused_rollout_union"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draws", ["philox", "table"])
+@pytest.mark.parametrize("n_envs", [32 * 7 + 19, 5], ids=["ragged", "small"])
+@pytest.mark.parametrize("case", list(ROLLOUT_CASES))
+def test_random_lanes_bitwise_on_contact_states(cuda, case, n_envs, draws, monkeypatch):
+    """The random rollout on contact states, on every route its plan can
+    pick (each lane count G in 2, 4, 8 at 32 and 128 threads a block, one
+    thread per env (G = 0, 32 a block), and every layout of the plan's
+    table) and the plan's own, drawing from Philox or from a uniforms
+    table: bitwise equal to the plain version and to the one-thread
+    route (signed zeros compare equal), on a batch that is no multiple of
+    32 / G and on one smaller than a block; one launch counted per call,
+    under ``fused_rollout`` on G lanes and ``fused_rollout_union`` on one
+    thread per env."""
+    from gym_futbol_tpu_torch.replay_timing import forced_plan
+
+    params = ROLLOUT_CASES[case]
+    sf, si, _ = _replay_contact_case(cuda, params, n_envs)
+    if draws == "table":
+        gen = torch.Generator(device=cuda).manual_seed(23)
+        u = torch.rand((T, tfr.n_draws_per_step(params), n_envs), generator=gen,
+                       device=cuda)
+        want = tfr.fused_rollout_reference(sf, si, params, uniforms=u)
+    else:
+        u = None
+        want = tfr.fused_rollout_reference(sf, si, params, T, seed=2**31 + 5)
+    outs = {}
+    for lanes, threads in [(None, None), *REPLAY_ROUTES]:
+        if lanes is not None:
+            monkeypatch.setattr(tfr, "rollout_plan", forced_plan(tfr, lanes, threads))
+        counter = _route_counter(tfr.rollout_plan(params, n_envs)["lanes"])
+        before = dict(ops.LAUNCHES)
+        got = ops.fused_rollout(sf, si, 2**31 + 5, params, T, uniforms=u)
+        torch.cuda.synchronize()
+        assert {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]} \
+            == {counter: 1}
+        outs[lanes, threads] = got
+        for name, a, b in zip(("statef", "statei", "rewards"), got, want):
+            assert torch.equal(a, b), (lanes, threads, name)
+    for got in outs.values():
+        assert all(torch.equal(a, b) for a, b in zip(got, outs[0, 32]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes, threads", [(1, 64), (3, 96), (8, 48), (8, 512), (0, 64)],
+                         ids=["one-lane", "lanes", "partial-warp", "too-many",
+                              "thread-block"])
+def test_random_refuses_a_bad_plan(cuda, lanes, threads, monkeypatch):
+    """A layout the random rollout's kernel does not take is refused at
+    launch and raises; nothing runs and no launch is counted."""
+    params = ROLLOUT_CASES["2v2"]
+    sf, si, _ = _replay_contact_case(cuda, params, 64)
+    monkeypatch.setattr(tfr, "rollout_plan", lambda p, n: dict(
+        lanes=lanes, threads=threads, slots="shared"))
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="fused_rollout"):
+        ops.fused_rollout(sf, si, 0, params, T)
+    assert ops.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -229,27 +229,23 @@ def test_wrappers_validate_inputs():
 
 
 # ---------------------------------------------------------------------------
-# The replay kernel's plan
+# The kernels' plan
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n_envs", [1, 31, 33, 4096, 16384, 65536])
-@pytest.mark.parametrize("ppt", [1, 2, 3, 4, 5])
-def test_replay_plan(ppt, n_envs):
-    """``replay_plan`` for every team size and batch: G is 2, 4 or 8 (or
-    0, one thread per env), the block is whole warps within the kernel's
-    limit and its envs' records fit the shared memory; the grid, with env e of block k on threads
+def _check_plan(plan, params, n_envs):
+    """A plan's layout is one the kernels take, its block's records fit
+    the shared memory; the grid, with env e of block k on threads
     [e * G, (e + 1) * G), gives every env exactly one group of G lanes;
     the ints the kernel takes (lanes, threads) give back the plan's
-    launch (``replay_launch``, the C entry's arithmetic)."""
-    params = params_from_reference(JEnvParams(players_per_team=ppt))
-    plan = tfr.replay_plan(params, n_envs)
+    launch (``lanes_launch``, the C entry's arithmetic)."""
     g, threads = plan["lanes"], plan["threads"]
     assert plan["slots"] == ("registers" if g == 0 else "shared")
     assert g in (0, 2, 4, 8)
-    assert threads % 32 == 0 and 32 <= threads <= tfr.REPLAY_MAX_THREADS
+    assert threads % 32 == 0 and 32 <= threads <= tfr.MAX_LANE_THREADS
+    assert g or threads == 32          # one thread per env: one warp a block
     assert plan["smem"] <= _build.SMEM_BYTES
-    launch = tfr.replay_launch(params.n_bodies, n_envs, g, threads)
+    launch = tfr.lanes_launch(params.n_bodies, n_envs, g, threads)
     assert {k: plan[k] for k in launch} == launch
     per_env = max(g, 1)                 # lanes 0: one thread per env
     assert launch["envs"] * per_env == threads
@@ -262,26 +258,118 @@ def test_replay_plan(ppt, n_envs):
     assert int((env[::per_env] < n_envs).sum()) == n_envs
 
 
+@pytest.mark.parametrize("n_envs", [1, 31, 33, 4096, 16384, 65536])
+@pytest.mark.parametrize("ppt", [1, 2, 3, 4, 5])
+def test_replay_plan(ppt, n_envs):
+    """``replay_plan`` for every team size and batch: G is 2, 4 or 8 (or
+    0, one thread per env), the block is whole warps within the kernel's
+    limit and its envs' records fit the shared memory; the grid, with env e of block k on threads
+    [e * G, (e + 1) * G), gives every env exactly one group of G lanes;
+    the ints the kernel takes (lanes, threads) give back the plan's
+    launch (``lanes_launch``, the C entry's arithmetic)."""
+    params = params_from_reference(JEnvParams(players_per_team=ppt))
+    _check_plan(tfr.replay_plan(params, n_envs), params, n_envs)
+
+
+@pytest.mark.parametrize("n_envs", [1, 31, 33, 4096, 16384, 65536])
+@pytest.mark.parametrize("ppt", [1, 2, 3, 4, 5])
+def test_rollout_plan(ppt, n_envs):
+    """``rollout_plan``, the random rollout's, as ``replay_plan`` is
+    held: G one of 0, 2, 4, 8, the block fits, every env one group, the
+    launch's ints back unchanged; and the plan is the row of
+    ``LANE_LAYOUTS`` the batch falls in, its threads lowered only to fit."""
+    params = params_from_reference(JEnvParams(players_per_team=ppt))
+    plan = tfr.rollout_plan(params, n_envs)
+    _check_plan(plan, params, n_envs)
+    row = next(r for r in tfr.LANE_LAYOUTS[ppt] if r[0] is None or n_envs <= r[0])
+    assert plan["lanes"] == row[1] and plan["threads"] <= row[2]
+    if plan["threads"] < row[2]:
+        assert tfr.lanes_launch(params.n_bodies, n_envs, row[1], plan["threads"] + 32)[
+            "smem"] > _build.SMEM_BYTES
+
+
 def test_replay_plan_layouts():
     """Every team size's rows end in one for any batch, their batch bounds
     rise, and each row's layout is one the kernel takes."""
-    for ppt, rows in tfr.REPLAY_LAYOUTS.items():
+    assert sorted(tfr.LANE_LAYOUTS) == [1, 2, 3, 4, 5]
+    for ppt, rows in tfr.LANE_LAYOUTS.items():
         bounds = [most for most, _, _ in rows]
         assert bounds[-1] is None and bounds[:-1] == sorted(bounds[:-1])
         for _, g, threads in rows:
             assert g in (0, 2, 4, 8) and threads % 32 == 0
-            assert 32 <= threads <= tfr.REPLAY_MAX_THREADS
+            assert 32 <= threads <= tfr.MAX_LANE_THREADS
             assert g or threads == 32      # one thread per env: PR 1's block
+
+
+def test_rollout_plan_layouts():
+    """The random rollout and the replay share one table and one plan
+    function (their fastest layouts measured alike), each wrapper
+    reading its own name: the same plan for every team size and batch."""
+    assert tfr.replay_plan is tfr.rollout_plan
+    for ppt in tfr.LANE_LAYOUTS:
+        params = params_from_reference(JEnvParams(players_per_team=ppt))
+        for n_envs in (1, 8192, 8193, 32768, 32769, 1 << 20):
+            assert tfr.replay_plan(params, n_envs) == tfr.rollout_plan(params, n_envs)
 
 
 def test_replay_plan_fits_shared_memory(monkeypatch):
     """A plan whose block's records would not fit the shared memory is
     cut a warp at a time until they do; the record is the C header's
-    EnvSlots<NB> (odd stride)."""
+    EnvSlots<NB> (odd stride). The plan is formed uncached here
+    (``__wrapped__``), so the patched table stays out of the cache."""
     assert [tfr.env_slot_floats(nb) for nb in (3, 5, 7, 9, 11)] == [69, 141, 231, 343, 473]
-    monkeypatch.setitem(tfr.REPLAY_LAYOUTS, 5, ((None, 2, 256),))
-    plan = tfr.replay_plan(params_from_reference(JEnvParams(players_per_team=5)), 65536)
+    monkeypatch.setitem(tfr.LANE_LAYOUTS, 5, ((None, 2, 256),))
+    plan = tfr.replay_plan.__wrapped__(
+        params_from_reference(JEnvParams(players_per_team=5)), 65536)
     assert plan["threads"] == 224 and plan["smem"] <= _build.SMEM_BYTES
-    assert tfr.replay_launch(11, 65536, 2, 256)["smem"] > _build.SMEM_BYTES
+    assert tfr.lanes_launch(11, 65536, 2, 256)["smem"] > _build.SMEM_BYTES
     with pytest.raises(ValueError):
         tfr.replay_plan(params_from_reference(JEnvParams(players_per_team=2)), 0)
+
+
+@pytest.mark.parametrize("ppt", [1, 2, 3, 4, 5])
+def test_rollout_plan_fits_shared_memory(ppt, monkeypatch):
+    """At every team size and lane count, a 256-thread row is cut to the
+    largest block of whole warps whose envs' records fit the shared
+    memory, and an unfitting block is never planned."""
+    params = params_from_reference(JEnvParams(players_per_team=ppt))
+    for g in (2, 4, 8):
+        monkeypatch.setitem(tfr.LANE_LAYOUTS, ppt, ((None, g, 256),))
+        plan = tfr.rollout_plan.__wrapped__(params, 65536)
+        fits = [n for n in range(32, 257, 32)
+                if tfr.lanes_launch(params.n_bodies, 65536, g, n)["smem"]
+                <= _build.SMEM_BYTES]
+        assert plan["lanes"] == g and plan["threads"] == max(fits)
+        assert plan["smem"] <= _build.SMEM_BYTES
+
+
+def test_rollout_plan_is_cached():
+    """The wrapper's plan is formed once per (params, batch): a second
+    call returns the same object, as ``_constants_array`` does."""
+    params = params_from_reference(JEnvParams(players_per_team=2))
+    first = tfr.rollout_plan(params, 4096)
+    assert tfr.rollout_plan(params, 4096) is first
+    assert tfr.rollout_plan(params, 4097) is not first
+    assert tfr.rollout_plan.cache_info().maxsize >= 64
+
+
+def test_random_kernels_keep_the_benchmark_name():
+    """Every random-mode kernel of csrc/fused_rollout.cu (each
+    ``__global__`` kernel that takes a uniforms table) is named
+    ``random_rollout_kernel``: the benchmark finds K1a in a trace by that
+    name (``futbench/metrics/k1a_roofline.py``)."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(tfr.__file__), "..", "csrc", "fused_rollout.cu")
+    with open(path) as fh:
+        src = fh.read()
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s*(\w+)\s*\(([^)]*)\)",
+                         src)
+    assert sorted(name for name, _ in kernels) == ["random_rollout_kernel",
+                                                   "replay_rollout_kernel"]
+    random = [name for name, args in kernels if "table" in args]
+    assert random and all(re.search("random_rollout_kernel", n) for n in random)
+    assert "futbol_fused_rollout_random" in src
+    launched = re.findall(r"(\w+)<NB, (?:0|G)>(?:<<<|,)", src.split('extern "C"')[1])
+    assert "random_rollout_kernel" in launched
