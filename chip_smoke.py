@@ -96,6 +96,15 @@ port's main paths:
   against their plain versions, their times beside the plain versions',
   the float32 autograd unroll they replace, cuBLAS on the same per-step
   products and their bound;
+- phase 25, K5's and K6's LayerNorm instantiations (stable-baselines'
+  layer-normalised cell) at the LayerNorm cell's shapes (K5: 16384 3v3
+  envs, torso (64, 64), H = 256; K6: phase 24's minibatch), each held to
+  its plain version step by step (the recurrence is chaotic), their
+  times beside the plain instantiations' and the plain versions', the
+  bounds of futbench/counts_lnlstm.py, cuBLAS on the same per-step
+  products, t Wi's one stacked product against three, and recurrent PPO
+  iterations at the cell's configuration with the LayerNorm route's
+  launches under their own counters;
 - phase 23, the port's bench as a user runs it: python -m
   gym_futbol_tpu_torch.bench --config N --verbose for configs 2-6 at
   their presets, then --scaling with one rank, each in a subprocess:
@@ -225,6 +234,23 @@ NORM_STAT_REL = 1e-5
 # measured).
 BT_S, BT_T, BT_NT, BT_H = 8192, 128, 64, 256
 K6_FWD_REL, K6_BWD_REL = 1e-4, 1e-3
+# K5's and K6's LayerNorm instantiations (phase 25) at the LayerNorm
+# cell's shapes: K5 at 16384 3v3 envs, torso (64, 64), H = 256 (from game
+# states after 32 random-policy steps, non-zero and zero carries), K6 at
+# phase 24's minibatch. The layer-normalised recurrence is chaotic (a
+# difference in h grows ~1.12x a step), so each is held to its plain
+# version step by step: K5 fed its own state and carries one step a call
+# (T = 1) for LN_TF_STEPS steps, by phase 14's bf16 rules; K6's forward
+# within K6_FWD_REL of its plain version run each step from the kernel's
+# carry, its backward within K6_BWD_REL over the window's first
+# LN_BWD_STEPS steps (its dh recurrence grows the same way). The main
+# path: recurrent PPO iterations at the cell's configuration, the
+# LayerNorm route's launches under their own counters, the plain ones 0.
+LN_B, LN_HIDDEN, LN_H, LN_T = 16384, (64, 64), 256, 128
+LN_TF_STEPS, LN_BWD_STEPS = 16, 4
+LN_PPO = dict(gamma=0.99, gae_lambda=0.95, clip_eps=0.2, lr=0.00025, epochs=4,
+              minibatches=4, vf_coef=0.5, ent_coef=0.01, max_grad_norm=0.5,
+              shuffle_block=512)
 
 
 class SmokeFailure(RuntimeError):
@@ -3099,6 +3125,320 @@ def bptt_phase(dev, main_launches: int) -> dict:
             "unit": f"ms per minibatch of {s} sequences, T {t_len}, torso {n_t}, H {hs}"}
 
 
+def ln_phase(dev, shares: dict) -> list[dict]:
+    """Phase 25: K5's and K6's LayerNorm instantiations against their plain
+    versions at the LayerNorm cell's shapes, step by step (the constants'
+    note), their times beside the plain instantiations' on the same
+    inputs, in turns, and the plain versions', the bounds of
+    ``futbench.counts_lnlstm`` (K5's at ``shares``, phase 6's 3v3 active
+    shares), cuBLAS (one bf16 product each) on the same per-step
+    products, ``t Wi`` as the node takes it (:func:`_mm3_k`, one stacked
+    product) against three (:func:`_mm3`), and recurrent PPO iterations
+    at the cell's configuration on the main path. Returns the two
+    kernels' entries of the kernels line."""
+    import torch
+
+    from futbench import counts_lnlstm, counts_recurrent
+    from gym_futbol_tpu_torch import EnvParams, a2c, obs_size, ops, vector
+    from gym_futbol_tpu_torch import recurrent_ppo as rppo
+    from gym_futbol_tpu_torch.models.recurrent import LN_EPS, RecurrentActorCritic
+    from gym_futbol_tpu_torch.ops._policy import unit_major
+    from gym_futbol_tpu_torch.ops.fused_rollout import n_draws_per_step
+
+    fr = importlib.import_module("gym_futbol_tpu_torch.ops.fused_recurrent")
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    pol = importlib.import_module("gym_futbol_tpu_torch.ops._policy")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    p3 = EnvParams(players_per_team=3)
+    n_obs, n_logits = obs_size(p3), 2 * p3.players_per_team * 5
+    bf16 = torch.bfloat16
+
+    def changed(before):
+        return {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+
+    def ln_model(gen):
+        model = RecurrentActorCritic(3, n_obs, LN_HIDDEN, LN_H, generator=gen, device=dev,
+                                     layer_norm=True)
+        with torch.no_grad():       # gains and biases off 1 and 0, the cell's bias off 0
+            for ln in model.layer_norms():
+                ln.weight.add_(0.1 * torch.randn(ln.weight.shape, generator=gen, device=dev))
+                ln.bias.add_(0.1 * torch.randn(ln.bias.shape, generator=gen, device=dev))
+            model.cell_h.bias.normal_(0.0, 0.1, generator=gen)
+        return model
+
+    # K5: T = 1 calls, each from the kernel's own state and carries
+    gen = torch.Generator(device=dev).manual_seed(25)
+    state, _ = vector.reset_batch(gen, p3, LN_B, device=dev)
+    sf, si, _ = ops.fused_rollout(*ops.pack_state(state, p3), 2500, p3, 32)
+    model = ln_model(gen)
+    w, ln = fr.flatten_recurrent_actor_critic(model), fr.layer_norm_leaves(model)
+    cc, hh = (torch.randn(2, LN_H, LN_B, generator=gen, device=dev) * 0.5 for _ in range(2))
+    cc[:, :, :5] = 0.0
+    hh[:, :, :5] = 0.0                                   # zero carries
+    u = torch.rand((LN_TF_STEPS, n_draws_per_step(p3), LN_B), generator=gen, device=dev)
+    k5_err, k5_logp, ties = 0.0, [], []
+    before = dict(ops.LAUNCHES)
+    for k in range(LN_TF_STEPS):
+        got = ops.fused_recurrent_collect(sf, si, w, cc, hh, 0, p3, 1, uniforms=u[k:k + 1],
+                                          ln=ln)
+        calls = []
+        orig = recording(pol, "sample_with_logp", calls)
+        try:
+            want = fr.fused_recurrent_collect_reference(sf, si, w, cc, hh, p3,
+                                                        uniforms=u[k:k + 1], ln=ln)
+        finally:
+            pol.sample_with_logp = orig
+        err, logp_err, counts = compare_policy_bf16(
+            got, want, calls, f"25 K5-LN step {k} (T=1 from the kernel's carry)", (3, 4),
+            (5, 6, 9, 10, 11), (0, 1, 2, 7, 8))
+        k5_err = max(k5_err, err)
+        k5_logp.append(logp_err)
+        ties.append(counts)
+        sf, si, cc, hh = got[0], got[1], got[10], got[11]
+    torch.cuda.synchronize()
+    check(changed(before) == {"fused_recurrent_collect_ln": LN_TF_STEPS},
+          f"25: K5-LN launches {changed(before)}")
+    total = {k: sum(c[k] for c in ties) for k in ties[0]}
+    phase("25 K5-LN", f"fused_recurrent_collect(ln=) 3v3 B={LN_B} torso {LN_HIDDEN} "
+          f"H={LN_H}, {LN_TF_STEPS} steps teacher-forced: largest float error {k5_err:.3g} "
+          f"(<= {POLICY_BF16_ATOL}), logp error by step "
+          f"{[float(f'{e:.3g}') for e in k5_logp]}; near ties {total}")
+
+    def k5(with_ln):
+        return lambda i: ops.fused_recurrent_collect(sf, si, w, cc, hh, 900 + i, p3, TR,
+                                                     ln=ln if with_ln else None)
+
+    k5(True)(0)
+    k5(False)(0)
+    ms_k5ln, ms_k5, ms_k5ln_again, ms_k5_again = (
+        time_cuda(k5(x), 5) / TR for x in (True, False, True, False))
+    fr.fused_recurrent_collect_reference(sf, si, w, cc, hh, p3, 1, seed=0, ln=ln)
+    plain_k5ln = time_cuda(lambda i: fr.fused_recurrent_collect_reference(
+        sf, si, w, cc, hh, p3, 2, seed=1 + i, ln=ln), 1) / 2
+    dims = counts_recurrent.lstm_dims(n_obs, LN_HIDDEN, LN_H, n_logits)
+    f_pad = -(-n_obs // 8) * 8
+    bound_k5ln = counts_lnlstm.k5ln_bound(3, dims, LN_H, f_pad, LN_B, TR, shares,
+                                          p3.substeps, p3.solver_iterations)
+    ms_bound_k5ln = bound_k5ln[0] / TR
+    wi, wh, wl = w[2 * len(LN_HIDDEN)], w[2 * len(LN_HIDDEN) + 1], w[2 * len(LN_HIDDEN) + 3]
+    xs = [torch.randn(2 * LN_B, d, device=dev, dtype=bf16)
+          for d in (n_obs, LN_HIDDEN[0], LN_HIDDEN[1], LN_H, LN_H)]
+    ms_ = [w[0].to(bf16), w[2].to(bf16), wi.to(bf16), wh.to(bf16), wl.to(bf16)]
+
+    def k5_products(_):           # cuBLAS on both views' per-step products
+        for x, m in zip(xs, ms_):
+            torch.matmul(x, m)
+
+    k5_products(0)
+    ms_lib5 = time_cuda(k5_products, 20)
+    phase("25 K5-LN", f"3v3 B={LN_B} T={TR}, ms/step: recurrent_ln_tc_kernel {ms_k5ln:.5f} "
+          f"(again {ms_k5ln_again:.5f}), the plain recurrent_tc_kernel on the same weights "
+          f"without the norms {ms_k5:.5f} (again {ms_k5_again:.5f}); plain version "
+          f"{plain_k5ln:.1f}; bound {ms_bound_k5ln:.6g} ({bound_k5ln[1]}; "
+          f"counts_lnlstm.k5ln_bound), kernel at {ms_bound_k5ln / ms_k5ln:.3%} of it; "
+          f"cuBLAS, one bf16 product each of the step's products, {ms_lib5:.5f}")
+    k5_record = {
+        "name": "fused_recurrent_collect_ln", "route": "cuda",
+        "kernel": "recurrent_ln_tc_kernel (bf16, tensor cores, LayerNorm)",
+        "source": RECURRENT_SOURCE, "replaces": None, "max_abs_err": k5_err,
+        "ms": ms_k5ln, "plain_kernel_ms": ms_k5, "plain_ms": plain_k5ln,
+        "bound_ms": ms_bound_k5ln, "bound_by": bound_k5ln[1], "library_ms": None,
+        "yardstick_ms": ms_lib5,
+        "unit": f"ms per step of {LN_B} 3v3 envs, torso {list(LN_HIDDEN)}, H {LN_H}"}
+    del xs, ms_, got, want, calls, model, w, ln, cc, hh, sf, si, state, u
+
+    # K6: the node's own gates' input side (t Wi, its LayerNorm)
+    s, t_len, n_t, hs = BT_S, BT_T, BT_NT, BT_H
+    gen = torch.Generator(device=dev).manual_seed(26)
+    t = torch.tanh(torch.randn(t_len, s, n_t, generator=gen, device=dev))
+    std = 1.0 / math.sqrt(n_t + hs)
+    w_i = torch.randn(4 * hs, n_t, generator=gen, device=dev) * std
+    w_h = torch.randn(4 * hs, hs, generator=gen, device=dev) * std
+    b = torch.randn(4 * hs, generator=gen, device=dev) * 0.1
+    c0 = torch.randn(s, hs, generator=gen, device=dev) * 0.5
+    h0 = torch.tanh(torch.randn(s, hs, generator=gen, device=dev))
+    c0[:7] = 0.0
+    h0[:7] = 0.0                                         # zero carries: h Wh a zero row
+    done = torch.rand(t_len, s, generator=gen, device=dev) < 0.01
+    d8 = done.to(torch.uint8)
+    dh = torch.randn(t_len, s, hs, generator=gen, device=dev) * 1e-2
+    lnl = [(1.0 if k % 2 == 0 else 0.0) + 0.1 * torch.randn(n, generator=gen, device=dev)
+           for k, n in enumerate((4 * hs,) * 4 + (hs,) * 2)]
+    gx, bx, gh, bh, gc, bc = lnl
+    t2 = fb._split(t)
+    rows2 = tuple(z.reshape(t_len * s, n_t) for z in t2)
+    wi2 = fb._split(unit_major(w_i).t())
+    x = fb._mm3_k(rows2, wi2)
+    x3 = fb._mm3(rows2, wi2)
+    mm_gap = ((x - x3).abs().max() / x3.abs().max()).item()
+    del x3
+    ms_mm3_k, ms_mm3, ms_mm3_k_again = (time_cuda(lambda i, f=f: f(rows2, wi2), 5)
+                                        for f in (fb._mm3_k, fb._mm3, fb._mm3_k))
+    a = torch.native_layer_norm(x, [4 * hs], unit_major(gx), unit_major(bx + b),
+                                LN_EPS)[0].reshape(t_len, s, hs, 4)
+    del x
+    torch.cuda.empty_cache()
+    phase("25 K6-LN", f"t Wi over the window ([{t_len * s}, {n_t}] x [{n_t}, {4 * hs}], "
+          f"split): one stacked product (_mm3_k) {ms_mm3_k:.3f} ms (again "
+          f"{ms_mm3_k_again:.3f}), three products (_mm3) {ms_mm3:.3f} ms; largest "
+          f"difference over the largest value {mm_gap:.3g}")
+    ghu, bhu = unit_major(gh).reshape(hs, 4), unit_major(bh).reshape(hs, 4)
+    before = dict(ops.LAUNCHES)
+    kout, bwd = fb._ln_forward_kernel(a, w_h, (gh, bh, gc, bc), c0, h0, d8)
+    kg, kc, kh, khp, ky, ksh, ksc, kcl, khl = kout
+    check(all(bool(torch.isfinite(z).all()) for z in (kg, kc, kh, ky, ksh, ksc)),
+          "25: K6-LN forward not finite")
+    check(bool((ky[0, :7] == 0).all()) and bool((ksh[0, :7, 0] == 0).all()),
+          "25: a zero carry's h Wh is not a zero row")
+    g_rows, c_rows = (fb.fragment_rows(z, s, hs).contiguous() for z in (kg, kc))
+    keep = (1.0 - done.float())[..., None]
+    num, den = {}, {}
+    c, h = c0, h0
+    for k in range(t_len):          # each step from the kernel's carry
+        p = fb.bptt_ln_forward_reference(a[k:k + 1], w_h, ghu, bhu, gc, bc, c, h,
+                                         d8[k:k + 1])
+        pairs = {"gates": (g_rows[k:k + 1], p[0]), "c": (c_rows[k:k + 1], p[1]),
+                 "h": (kh[k:k + 1], p[2]),
+                 "h_prev": (khp[0][k:k + 1].float() + khp[1][k:k + 1].float(), p[3]),
+                 "y": (ky[k:k + 1], p[4]), "stats_y": (ksh[k:k + 1], p[5]),
+                 "stats_c": (ksc[k:k + 1], p[6])}
+        if k == t_len - 1:
+            pairs.update(c_last=(kcl, p[7]), h_last=(khl, p[8]))
+        for name, (g_, w_) in pairs.items():
+            num[name] = max(num.get(name, 0.0), (g_ - w_).abs().max().item())
+            den[name] = max(den.get(name, 0.0), w_.abs().max().item())
+        c, h = c_rows[k] * keep[k], kh[k] * keep[k]
+    errs = {k: num[k] / den[k] for k in num}
+    n_b = LN_BWD_STEPS
+    kd = fb._ln_backward_kernel(kg[:n_b], kc[:n_b], ky[:n_b], ksh[:n_b], ksc[:n_b], c0,
+                                d8[:n_b], dh[:n_b], bwd, ghu.contiguous(), gc, bc)
+    pd = fb.bptt_ln_backward_reference(g_rows[:n_b], c_rows[:n_b], ky[:n_b], ksh[:n_b],
+                                       ksc[:n_b], c0, d8[:n_b], dh[:n_b], w_h, ghu, gc, bc)
+    torch.cuda.synchronize()
+    check(changed(before) == {"fused_lnlstm_bptt": 2}, f"25: K6-LN launches {changed(before)}")
+    kd = (kd[0], kd[1][0].float() + kd[1][1].float(), kd[2])
+    errs_bwd = {name: ((g_ - w_).abs().max() / w_.abs().max()).item()
+                for name, g_, w_ in zip(("dpre", "dy", "dn"), kd, pd)}
+    check(all(bool(torch.isfinite(z).all()) for z in kd), "25: K6-LN backward not finite")
+    check(max(errs.values()) <= K6_FWD_REL and max(errs_bwd.values()) <= K6_BWD_REL,
+          f"25: K6-LN against its plain versions: forward {errs}, backward {errs_bwd}")
+    k6_err = max(num["h"], (kd[0] - pd[0]).abs().max().item())
+    phase("25 K6-LN", f"fused_lnlstm_bptt S={s} T={t_len} torso {n_t} H={hs}, resets "
+          f"{int(done.sum())}, 7 zero carries: forward kernel against its plain version "
+          f"run each step from the kernel's carry (largest difference over the largest "
+          f"value) " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; backward over the first {n_b} steps " + ", ".join(
+              f"{k} {v:.3g}" for k, v in errs_bwd.items()))
+    del kout, kg, kc, kh, khp, ky, ksh, ksc, kcl, khl, g_rows, c_rows, kd, pd, p, pairs
+    del c, h
+    torch.cuda.empty_cache()
+
+    def ln_kernels(_):
+        (g_, c_, _h, _hp, y_, sh_, sc_, *_), b_ = fb._ln_forward_kernel(
+            a, w_h, (gh, bh, gc, bc), c0, h0, d8)
+        fb._ln_backward_kernel(g_, c_, y_, sh_, sc_, c0, d8, dh, b_, ghu.contiguous(), gc, bc)
+
+    def ln_forward(_):
+        fb._ln_forward_kernel(a, w_h, (gh, bh, gc, bc), c0, h0, d8)
+
+    def plain_kernels(_):
+        (g_, c_, *_), b_ = fb._forward_kernel(t2, w_i, w_h, b, c0, h0, d8)
+        fb._backward_kernel(g_, c_, c0, d8, dh, b_)
+
+    ln_kernels(0)
+    plain_kernels(0)
+    ms_fwd, ms_k6ln, ms_k6, ms_k6ln_again, ms_k6_again = (
+        time_cuda(f, 5) for f in (ln_forward, ln_kernels, plain_kernels, ln_kernels,
+                                  plain_kernels))
+    leaves = [z.clone().requires_grad_(True) for z in (t, w_i, w_h, b)]
+    ln_leaves = [z.clone().requires_grad_(True) for z in lnl]
+
+    def node(_):
+        h_all, _ = fb.fused_lnlstm_bptt(*leaves, ln_leaves, (c0, h0), done)
+        h_all.backward(dh)
+
+    node(0)
+    ms_node = time_cuda(node, 3)
+
+    def plain(_):
+        out = fb.bptt_ln_forward_reference(a, w_h, ghu, bhu, gc, bc, c0, h0, d8)
+        fb.bptt_ln_backward_reference(out[0], out[1], out[4], out[5], out[6], c0, d8, dh,
+                                      w_h, ghu, gc, bc)
+
+    plain(0)
+    ms_plain = time_cuda(plain, 1)
+    a_f = torch.randn(s, hs, generator=gen, device=dev).bfloat16()
+    b_f = torch.randn(hs, 4 * hs, generator=gen, device=dev).bfloat16()
+    a_b = torch.randn(s, 4 * hs, generator=gen, device=dev).bfloat16()
+    b_b = torch.randn(4 * hs, hs, generator=gen, device=dev).bfloat16()
+
+    def products(_):              # cuBLAS on the recurrence's per-step products
+        for _k in range(t_len):
+            torch.mm(a_f, b_f, out_dtype=torch.float32)
+            torch.mm(a_b, b_b, out_dtype=torch.float32)
+
+    products(0)
+    ms_lib6 = time_cuda(products, 3)
+    bound_k6ln = counts_lnlstm.k6ln_bound(hs, s, t_len, 1)
+    phase("25 K6-LN", f"fused_lnlstm_bptt, one minibatch (S={s} T={t_len} torso {n_t} "
+          f"H={hs}), ms: bptt_ln_forward_kernel {ms_fwd:.3f} + bptt_ln_backward_kernel "
+          f"{ms_k6ln - ms_fwd:.3f} = kernels {ms_k6ln:.3f} (again {ms_k6ln_again:.3f}); "
+          f"the plain K6 kernels on the same t and weights {ms_k6:.3f} (again "
+          f"{ms_k6_again:.3f}); the autograd node (t Wi, its LayerNorm and LayerNorm's "
+          f"backward, the split weight products) {ms_node:.3f}; plain versions "
+          f"{ms_plain:.1f}; cuBLAS, one bf16 product a step, {ms_lib6:.3f}; bound "
+          f"{bound_k6ln[0]:.3f} ({bound_k6ln[1]}; counts_lnlstm.k6ln_bound), kernels at "
+          f"{bound_k6ln[0] / ms_k6ln:.3%} of it")
+    k6_record = {
+        "name": "fused_lnlstm_bptt", "route": "cuda",
+        "kernel": "bptt_ln_forward_kernel + bptt_ln_backward_kernel (bf16 operand "
+                  "pairs, tensor cores, LayerNorm)",
+        "source": BPTT_SOURCE, "replaces": None, "max_abs_err": k6_err,
+        "ms": ms_k6ln, "forward_ms": ms_fwd, "node_ms": ms_node, "plain_kernel_ms": ms_k6,
+        "plain_ms": ms_plain, "bound_ms": bound_k6ln[0], "bound_by": bound_k6ln[1],
+        "library_ms": None, "yardstick_ms": ms_lib6, "t_wi_stacked_ms": ms_mm3_k,
+        "t_wi_three_ms": ms_mm3,
+        "unit": f"ms per minibatch of {s} sequences, T {t_len}, torso {n_t}, H {hs}"}
+    del t, t2, rows2, a, leaves, ln_leaves, dh, a_f, b_f, a_b, b_b
+    torch.cuda.empty_cache()
+
+    # the main path: recurrent PPO iterations at the cell's configuration
+    gen = torch.Generator(device=dev).manual_seed(27)
+    cfg = rppo.RecurrentPPOConfig(rollout_steps=LN_T, **LN_PPO)
+    runner = rppo.init_recurrent_ppo_runner(gen, ln_model(gen), p3, cfg, LN_B)
+    step = functools.partial(rppo.train_iteration_recurrent_ppo,
+                             collect_fn=a2c.collect_recurrent_rollout_fused)
+    runner, _ = step(runner, p3, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    n_iters = 2
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        runner, metrics = step(runner, p3, cfg)
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) * 1e3 / n_iters
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    n_mb = cfg.epochs * cfg.minibatches
+    check(launches == {"fused_recurrent_collect_ln": n_iters,
+                       "fused_lnlstm_bptt": 2 * n_mb * n_iters},
+          f"25: the LayerNorm main path's launches {launches}")
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()), "25: metrics not finite")
+    phase("25 main path", f"train_iteration_recurrent_ppo, the layer-normalised LSTM, 3v3 "
+          f"B={LN_B} T={LN_T} torso {LN_HIDDEN} H={LN_H}, {cfg.epochs} x "
+          f"{cfg.minibatches} minibatches: {ms_iter:.1f} ms an iteration "
+          f"({LN_B * LN_T / ms_iter * 1e3:.6g} env-steps/s), peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; launches over "
+          f"{n_iters} iterations (counters reset just before) {launches}")
+    k5_record["launches"] = launches["fused_recurrent_collect_ln"]
+    k6_record["launches"] = launches["fused_lnlstm_bptt"]
+    del runner
+    torch.cuda.empty_cache()
+    phase("25 time", f"phase 25 in {time.perf_counter() - t_start:.1f} s")
+    return [k5_record, k6_record]
+
+
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (the share of its wall
     time the device was busy, the wall ms, [(kernel, launches, device
@@ -3539,6 +3879,7 @@ def main() -> int:
     array_api_phase(dev, p4, sf4, si4)
     bench_phase()
     bptt_record = bptt_phase(dev, k6_main_launches)
+    ln_records = ln_phase(dev, shares["3v3"])
     phase("time", "seconds per phase (each interval between two lines charged "
           "to the phase of the later): " + json.dumps(
               {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
@@ -3564,6 +3905,7 @@ def main() -> int:
         update_record,
         recurrent_record,
         bptt_record,
+        *ln_records,
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

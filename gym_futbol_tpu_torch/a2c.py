@@ -301,13 +301,15 @@ def collect_recurrent_rollout_fused(
     kernel's Philox stream. ``compute_dtype``: bfloat16 (the main path,
     the tensor-core kernel) or float32 (exact), as
     :func:`~gym_futbol_tpu_torch.ops.fused_recurrent.fused_recurrent_collect`
-    takes it. The kernel's obs ``[2, F_pad, T, B]`` become the ``[T, 2B,
+    takes it (a layer-normalised cell on bfloat16 only). The kernel's obs
+    ``[2, F_pad, T, B]`` become the ``[T, 2B,
     F]`` the BPTT loss steps through; carries cross as ``[2, H, B]``.
     Returns (runner, traj, bootstrap value ``[2B]``)."""
     from .ops import pack_state, unpack_state
     from .ops.fused_recurrent import (
         flatten_recurrent_actor_critic,
         fused_recurrent_collect,
+        layer_norm_leaves,
     )
 
     _check_model(runner.model, env_params)
@@ -318,7 +320,8 @@ def collect_recurrent_rollout_fused(
     (sf, si, obs, dirs, acts, logp, value, reward, done, last_v, cc,
      hh) = fused_recurrent_collect(
         sf, si, flatten_recurrent_actor_critic(runner.model), cc, hh, seed,
-        env_params, cfg.rollout_steps, uniforms=uniforms, compute_dtype=compute_dtype)
+        env_params, cfg.rollout_steps, uniforms=uniforms, compute_dtype=compute_dtype,
+        ln=layer_norm_leaves(runner.model))
     t, b = cfg.rollout_steps, sf.shape[1]
     f = env_core.obs_size(env_params)
     traj = Transition(
@@ -358,7 +361,14 @@ def train_iteration_recurrent(
     :func:`collect_recurrent_rollout`; :func:`collect_recurrent_rollout_fused`
     for the kernel) -> advantages -> one full-batch BPTT step from the
     carry the window started with, averaged over ``group``'s ranks.
-    Returns (runner, metrics)."""
+    Returns (runner, metrics). A layer-normalised cell is refused: the
+    fused collect of recurrent A2C is K5's float32 route, which has no
+    LayerNorm."""
+    if runner.model.layer_norm:
+        raise ValueError(
+            "recurrent A2C collects on K5's float32 route (FUSED_COLLECT_DTYPE['a2c'], "
+            "recurrent_kernel), which has no LayerNorm: train a layer-normalised LSTM "
+            "with recurrent PPO")
     collect_fn = collect_fn or collect_recurrent_rollout
     init_carry = _flat_carry(runner.carry, runner.obs.shape[0])
     runner, traj, last_value = collect_fn(runner, env_params, cfg)

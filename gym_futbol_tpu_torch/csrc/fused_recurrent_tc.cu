@@ -71,6 +71,32 @@
 // carries' loads and the streamed part of the cell's weights is hidden
 // by little else (PERF.md §6).
 //
+// LayerNorm (stable-baselines' layer-normalised cell, MlpLnLstmPolicy:
+// gates = LN(t Wi; gx, bx) + LN(h Wh; gh, bh) + b, h' = o tanh(LN(c';
+// gc, bc))): the kernel's body takes it as a compile-time flag, and its
+// instantiation is recurrent_ln_tc_kernel. Each product is normalised
+// over its whole 4H row, and c' over its H units, before any unit's use,
+// while the cell runs group by group; a warp owns its envs' rows whole,
+// so every reduction stays in the warp (the quad's __shfl_xor_sync). The
+// design, three passes over the groups:
+// - pass 1 runs the group's products as the plain cell does, but t Wi
+//   (its first kt / 16 k-steps) and h Wh (the rest) into two
+//   accumulators, and sums each row's values and squares of both;
+// - pass 2 runs the products again (nothing holds 4H columns of 32 rows
+//   between the passes: the tiles do not, and registers hold one
+//   group's), normalises each with its row's mean and 1 / sqrt(var +
+//   1e-5) (var = E[y^2] - E[y]^2, clamped at 0, over the real 4H columns:
+//   a padded unit's columns are zero), adds b, runs the gates and c', and
+//   writes c' and the o gate to the view's carry rows (c' is what the
+//   plain cell writes there; the o gate waits in h's place), summing c'
+//   and c'^2 for each row;
+// - pass 3 reads them back, normalises c', writes h' over the o gate and
+//   feeds the heads group by group as the plain cell does.
+// The bootstrap forward, which stores no carry, writes them to a scratch
+// [2, 2, H, B] instead. The LayerNorm vectors (gx, bx, gh, bh in the gate
+// columns' order, gc, bc per unit) follow the value head in the f32
+// vector; statistics, normalisation, gains and biases are f32.
+//
 // C interface for ctypes; the entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -150,8 +176,62 @@ struct Frags {
   }
 };
 
+// The LayerNorm instantiation's own arguments: the LayerNorm vectors'
+// offset in the f32 vector, and the bootstrap forward's scratch.
+struct RecLn {
+  int off;
+  float* scr;
+};
+
 __device__ __forceinline__ float gate_sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// A row's (sum, sum of squares) over the quad, as (mean, 1 / sqrt(var +
+// eps)) over n columns.
+__device__ __forceinline__ float2 quad_stats(float2 p, int n) {
+  p.x += __shfl_xor_sync(0xffffffffu, p.x, 1);
+  p.y += __shfl_xor_sync(0xffffffffu, p.y, 1);
+  p.x += __shfl_xor_sync(0xffffffffu, p.x, 2);
+  p.y += __shfl_xor_sync(0xffffffffu, p.y, 2);
+  const float nf = static_cast<float>(n);
+  const float mu = p.x / nf;
+  return make_float2(mu, 1.0f / sqrtf(fmaxf(p.y / nf - mu * mu, 0.0f) + 1e-5f));
+}
+
+// One group pass's products (pass 1 and 2 of the LayerNorm cell): t Wi
+// into ax, h Wh into ay.
+__device__ __forceinline__ void ln_products(float (&ax)[2][4][4], float (&ay)[2][4][4],
+                                            const bf16* xa, int ldc, const Frags& fr,
+                                            int w_off, int njc, int jj0, int nkt, int nk,
+                                            int lane) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ax[m][j][e] = ay[m][j][e] = 0.0f;
+#pragma unroll 2
+  for (int kk = 0; kk < nkt; ++kk) {
+    unsigned a[2][4];
+    ldsm_x4(a[0], xa + kk * 16);
+    ldsm_x4(a[1], xa + 16 * ldc + kk * 16);
+    const int i0 = w_off + (kk * njc + jj0) * 32 + lane;
+    mma_chunk(ax, a, fr.unit(i0), fr.unit(i0 + 32));
+  }
+#pragma unroll 2
+  for (int kk = nkt; kk < nk; ++kk) {
+    unsigned a[2][4];
+    ldsm_x4(a[0], xa + kk * 16);
+    ldsm_x4(a[1], xa + 16 * ldc + kk * 16);
+    const int i0 = w_off + (kk * njc + jj0) * 32 + lane;
+    mma_chunk(ay, a, fr.unit(i0), fr.unit(i0 + 32));
+  }
+}
+
+// LN(v; g, b) with the row's statistics st = (mean, 1 / sqrt(var + eps)).
+__device__ __forceinline__ float ln1(float v, float2 st, float g, float b) {
+  return g * ((v - st.x) * st.y) + b;
 }
 
 // The M row of the warp's env e (0..31): lane (g, t) of an mma C fragment
@@ -199,11 +279,11 @@ __device__ __forceinline__ void store4(float* p, int u, int hsize, int e0, int B
 // One view's forward for the warp (module note): returns the f32 tile
 // whose row o, column lane is logit o of the lane's env, the value at row
 // np_head.
-template <int NB, bool MIRROR>
+template <int NB, bool MIRROR, bool LN>
 __device__ __forceinline__ const float* rec_view_forward(
     const Env<NB>& e, bool owner, const ObsConsts& oc, float* obs, size_t row_stride,
     int f_pad, const Frags& fr, const float* __restrict__ fv, const RecNet& n,
-    const RecTiles& wt, const Carry& cr, int B, int b0, int lane) {
+    const RecTiles& wt, const Carry& cr, int B, int b0, int lane, const RecLn& ln) {
   constexpr int KK0 = (4 * NB + 2 + 15) / 16;
   constexpr int NLJ = ((NB - 1) * kChoices + 15) / 16 * 2;
   const int g = lane >> 2, t = lane & 3;
@@ -264,6 +344,144 @@ __device__ __forceinline__ const float* rec_view_forward(
   float vpart[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   const int q8 = lane >> 3, r8 = lane & 7;
   const bf16* xa = wt.xc + ((q8 & 1) * 8 + r8) * wt.ldc + (q8 >> 1) * 8;
+  if constexpr (LN) {
+    const int nk = n.kp[cl] / 16, nkt = kt / 16, g4 = 4 * n.hp;
+    // gx, bx, gh, bh [4 hp] in the gate columns' order, then gc, bc [hp]
+    const float* __restrict__ lv = fv + ln.off;
+    // pass 1: each row's sums of t Wi and of h Wh
+    float2 sx[2][2], sy[2][2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) sx[m][hh] = sy[m][hh] = make_float2(0.0f, 0.0f);
+#pragma unroll 1
+    for (int q = 0; q < n.hp / 16; ++q) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float ax[2][4][4], ay[2][4][4];
+        ln_products(ax, ay, xa, wt.ldc, fr, n.w_off[cl], njc, 4 * q + 2 * half, nkt, nk,
+                    lane);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int e2 = 0; e2 < 2; ++e2) {
+                const float x = ax[m][j][2 * hh + e2], y = ay[m][j][2 * hh + e2];
+                sx[m][hh].x += x;
+                sx[m][hh].y += x * x;
+                sy[m][hh].x += y;
+                sy[m][hh].y += y * y;
+              }
+      }
+    }
+    float2 stx[2][2], sty[2][2], sc[2][2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        stx[m][hh] = quad_stats(sx[m][hh], 4 * n.hsize);
+        sty[m][hh] = quad_stats(sy[m][hh], 4 * n.hsize);
+        sc[m][hh] = make_float2(0.0f, 0.0f);
+      }
+    // pass 2: the gates and c'; c' and the o gate to the carry rows
+#pragma unroll 1
+    for (int q = 0; q < n.hp / 16; ++q) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int jj0 = 4 * q + 2 * half;
+        const int u0 = 16 * q + 8 * half + 2 * t;
+        const float4 cold[2] = {carry4(cr.c_src, u0, n.hsize, e0, B),
+                                carry4(cr.c_src, u0 + 1, n.hsize, e0, B)};
+        float ax[2][4][4], ay[2][4][4];
+        ln_products(ax, ay, xa, wt.ldc, fr, n.w_off[cl], njc, jj0, nkt, nk, lane);
+#pragma unroll
+        for (int jl = 0; jl < 2; ++jl) {
+          const int u = u0 + jl;
+          const int col = 16 * (jj0 + jl) + 2 * t;   // i, f; + 8: g, o
+          float2 v[5][2];   // b, gx, bx, gh, bh: (i, f) and (g, o)
+#pragma unroll
+          for (int w = 0; w < 5; ++w) {
+            const float* base = w == 0 ? cb : lv + (w - 1) * g4;
+            v[w][0] = __ldg(reinterpret_cast<const float2*>(base + col));
+            v[w][1] = __ldg(reinterpret_cast<const float2*>(base + col + 8));
+          }
+          float cn[4], on[4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int k = 2 * m + hh;
+              float pre[4];
+#pragma unroll
+              for (int gq = 0; gq < 4; ++gq) {
+                const int j = 2 * jl + (gq >> 1), ee = 2 * hh + (gq & 1);
+                const float2 gx = v[1][gq >> 1], bx = v[2][gq >> 1];
+                const float2 gh = v[3][gq >> 1], bh = v[4][gq >> 1];
+                const float2 bb = v[0][gq >> 1];
+                const bool second = gq & 1;
+                pre[gq] = (ln1(ax[m][j][ee], stx[m][hh], second ? gx.y : gx.x,
+                               second ? bx.y : bx.x) +
+                           ln1(ay[m][j][ee], sty[m][hh], second ? gh.y : gh.x,
+                               second ? bh.y : bh.x)) +
+                          (second ? bb.y : bb.x);
+              }
+              const float gi = gate_sigmoid(pre[0]);
+              const float gf = gate_sigmoid(pre[1]);
+              const float gg = tanhf(pre[2]);
+              on[k] = gate_sigmoid(pre[3]);
+              cn[k] = gf * part(cold[jl], k) + gi * gg;
+              sc[m][hh].x += cn[k];
+              sc[m][hh].y += cn[k] * cn[k];
+            }
+          store4(cr.c_dst, u, n.hsize, e0, B, make_float4(cn[0], cn[1], cn[2], cn[3]));
+          store4(cr.h_dst, u, n.hsize, e0, B, make_float4(on[0], on[1], on[2], on[3]));
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) sc[m][hh] = quad_stats(sc[m][hh], n.hsize);
+    // pass 3: h' from LN(c') and the o gate, the heads group by group
+#pragma unroll 1
+    for (int q = 0; q < n.hp / 16; ++q) {
+      unsigned ah[2][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int u0 = 16 * q + 8 * half + 2 * t;
+        float hv[2][2][2];   // h' [m][hh][jl]
+#pragma unroll
+        for (int jl = 0; jl < 2; ++jl) {
+          const int u = u0 + jl;
+          const float4 c4 = carry4(cr.c_dst, u, n.hsize, e0, B);
+          const float4 o4 = carry4(cr.h_dst, u, n.hsize, e0, B);
+          const float gc = u < n.hsize ? __ldg(lv + 4 * g4 + u) : 0.0f;
+          const float bc = u < n.hsize ? __ldg(lv + 4 * g4 + n.hp + u) : 0.0f;
+          const float wvu = __ldg(wv + u);
+          float hn[4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int k = 2 * m + hh;
+              hn[k] = part(o4, k) * tanhf(ln1(part(c4, k), sc[m][hh], gc, bc));
+              hv[m][hh][jl] = hn[k];
+              vpart[m][hh] = vpart[m][hh] + hn[k] * wvu;
+            }
+          store4(cr.h_dst, u, n.hsize, e0, B, make_float4(hn[0], hn[1], hn[2], hn[3]));
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            ah[m][2 * half + hh] = pack_bf16(hv[m][hh][0], hv[m][hh][1]);
+      }
+      head_step<NLJ>(hacc, ah, Wl, q, lane);
+    }
+  } else {
 #pragma unroll 1
   for (int q = 0; q < n.hp / 16; ++q) {
     unsigned ah[2][4];
@@ -319,6 +537,7 @@ __device__ __forceinline__ const float* rec_view_forward(
     }
     head_step<NLJ>(hacc, ah, Wl, q, lane);
   }
+  }
   __syncwarp();   // every read of the tiles is done: lg aliases t[0]
   heads_out<NLJ>(hacc, vpart, fv + n.b_off[hl], true, __ldg(wv + n.hp), n.np[hl],
                  wt.lg, lane);
@@ -330,14 +549,13 @@ __device__ __forceinline__ const float* rec_view_forward(
 // blockIdx.x * plan.envs + i.
 // ---------------------------------------------------------------------------
 
-template <int NB>
-__global__ void __launch_bounds__(kRecMaxThreads)
-recurrent_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_in,
-                    float* __restrict__ sf_out, int* __restrict__ si_out,
-                    const uint4* __restrict__ wfrag, const float* __restrict__ fv,
-                    RecNet net, RecPlan plan, CarryIO io, CollectOut out,
-                    const float* __restrict__ table, uint32_t seed, int B, int T,
-                    int f_pad, Consts c, Ints k, ObsConsts oc) {
+template <int NB, bool LN>
+__device__ __forceinline__ void recurrent_body(
+    const float* __restrict__ sf_in, const int* __restrict__ si_in,
+    float* __restrict__ sf_out, int* __restrict__ si_out, const uint4* __restrict__ wfrag,
+    const float* __restrict__ fv, const RecNet& net, const RecPlan& plan, const CarryIO& io,
+    const CollectOut& out, const float* __restrict__ table, uint32_t seed, int B, int T,
+    int f_pad, const Consts& c, const Ints& k, const ObsConsts& oc, const RecLn& ln) {
   constexpr int NPL = NB - 1;
   constexpr int ND = 2 * NPL + 2 + 2 * NB;
   constexpr int G = NPL;
@@ -375,17 +593,17 @@ recurrent_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_
     float* o0 = owner ? out.obs + static_cast<size_t>(step) * B + b : nullptr;
     const float* c_src = step == 0 ? io.c_in : io.c_out;
     const float* h_src = step == 0 ? io.h_in : io.h_out;
-    const float* y = rec_view_forward<NB, false>(
+    const float* y = rec_view_forward<NB, false, LN>(
         e, owner, oc, o0, row_stride, f_pad, fr, fv, net, wt,
-        Carry{c_src, h_src, io.c_out, io.h_out}, B, b0, lane);
+        Carry{c_src, h_src, io.c_out, io.h_out}, B, b0, lane, ln);
     if (owner) {
       lp[0] = sample_groups<G, 0>(y + row, table, seed, ND, B, step, b, ia);
       val[0] = y[vrow];
     }
-    y = rec_view_forward<NB, true>(
+    y = rec_view_forward<NB, true, LN>(
         e, owner, oc, owner ? o0 + f_pad * row_stride : nullptr, row_stride, f_pad, fr,
         fv, net, wt, Carry{c_src + view, h_src + view, io.c_out + view, io.h_out + view},
-        B, b0, lane);
+        B, b0, lane, ln);
     if (owner) {
       lp[1] = sample_groups<G, G>(y + row, table, seed, ND, B, step, b, ib);
       val[1] = y[vrow];
@@ -420,18 +638,46 @@ recurrent_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_
     }
   }
   // bootstrap values of the carried state on the carried carries; the
-  // cell's carry advance is not stored
-  const float* y = rec_view_forward<NB, false>(
+  // cell's carry advance is not stored (LN: c' and the o gate go to the
+  // scratch, [c', o][view][H][B])
+  const float* y = rec_view_forward<NB, false, LN>(
       e, owner, oc, nullptr, 0, 0, fr, fv, net, wt,
-      Carry{io.c_out, io.h_out, nullptr, nullptr}, B, b0, lane);
+      Carry{io.c_out, io.h_out, LN ? ln.scr : nullptr, LN ? ln.scr + 2 * view : nullptr},
+      B, b0, lane, ln);
   if (owner) out.last_value[b] = y[vrow];
-  y = rec_view_forward<NB, true>(
+  y = rec_view_forward<NB, true, LN>(
       e, owner, oc, nullptr, 0, 0, fr, fv, net, wt,
-      Carry{io.c_out + view, io.h_out + view, nullptr, nullptr}, B, b0, lane);
+      Carry{io.c_out + view, io.h_out + view, LN ? ln.scr + view : nullptr,
+            LN ? ln.scr + 3 * view : nullptr},
+      B, b0, lane, ln);
   if (owner) {
     out.last_value[static_cast<size_t>(B) + b] = y[vrow];
     store_env<NB>(e, sf_out, si_out, B, b);
   }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kRecMaxThreads)
+recurrent_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_in,
+                    float* __restrict__ sf_out, int* __restrict__ si_out,
+                    const uint4* __restrict__ wfrag, const float* __restrict__ fv,
+                    RecNet net, RecPlan plan, CarryIO io, CollectOut out,
+                    const float* __restrict__ table, uint32_t seed, int B, int T,
+                    int f_pad, Consts c, Ints k, ObsConsts oc) {
+  recurrent_body<NB, false>(sf_in, si_in, sf_out, si_out, wfrag, fv, net, plan, io, out,
+                            table, seed, B, T, f_pad, c, k, oc, RecLn{0, nullptr});
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kRecMaxThreads)
+recurrent_ln_tc_kernel(const float* __restrict__ sf_in, const int* __restrict__ si_in,
+                       float* __restrict__ sf_out, int* __restrict__ si_out,
+                       const uint4* __restrict__ wfrag, const float* __restrict__ fv,
+                       RecNet net, RecPlan plan, CarryIO io, CollectOut out,
+                       const float* __restrict__ table, uint32_t seed, int B, int T,
+                       int f_pad, Consts c, Ints k, ObsConsts oc, RecLn ln) {
+  recurrent_body<NB, true>(sf_in, si_in, sf_out, si_out, wfrag, fv, net, plan, io, out,
+                           table, seed, B, T, f_pad, c, k, oc, ln);
 }
 
 // ---------------------------------------------------------------------------
@@ -488,6 +734,74 @@ bool rec_plan_ok(const RecNet& n, const RecPlan& p, int n_bodies, int n_frag,
   return ok && smem <= static_cast<size_t>(kRecSmemLimit);
 }
 
+// The entry's launch, plain or LayerNorm (ln: its vectors' offset and
+// the scratch, unused by the plain kernel).
+template <bool LN>
+int launch_recurrent(const float* sf_in, const int* si_in, float* sf_out, int* si_out,
+                     const void* wfrag, int n_frag, const float* fv, const int* dims,
+                     int n_torso, int hsize, int wv_off, RecLn ln, const int* plan_ints,
+                     const float* c_in, const float* h_in, float* c_out, float* h_out,
+                     float* obs, int* dirs, int* acts, float* logp, float* value,
+                     float* reward, int* done, float* last_value, const float* table,
+                     unsigned int seed, int n_bodies, int B, int T, int f_pad, int substeps,
+                     int iterations, int max_steps, const float* consts, int n_consts,
+                     const float* obs_consts, void* stream) {
+  RecNet net;
+  const RecPlan plan{plan_ints[0],
+                     plan_ints[1],
+                     {plan_ints[2], plan_ints[3], plan_ints[4]},
+                     {plan_ints[5], plan_ints[6], plan_ints[7]}};
+  size_t smem = 0;
+  if (n_consts != kNumConsts || B <= 0 || T < 1 || n_bodies < 3 || n_bodies > 11 ||
+      f_pad < 4 * n_bodies + 2 ||
+      !make_rec_net(dims, n_torso, hsize, wv_off, n_bodies, n_frag, net) ||
+      !rec_plan_ok(net, plan, n_bodies, n_frag, smem))
+    return cudaErrorInvalidValue;
+  if (LN && (ln.off < wv_off + net.hp + 2 || ln.off % 2 != 0 || ln.scr == nullptr))
+    return cudaErrorInvalidValue;
+  Consts c;
+  std::memcpy(&c, consts, sizeof(Consts));
+  const Ints k{substeps, iterations, max_steps};
+  const ObsConsts oc{obs_consts[0], obs_consts[1], obs_consts[2]};
+  const CarryIO io{c_in, h_in, c_out, h_out};
+  const CollectOut out{obs, dirs, acts, logp, value, reward, done, last_value};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((B + plan.envs - 1) / plan.envs);
+  const uint4* w = static_cast<const uint4*>(wfrag);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (n_bodies) {
+#define FUTBOL_CASE(NB)                                                              \
+  case NB:                                                                           \
+    if constexpr (LN) {                                                              \
+      err = cudaFuncSetAttribute(recurrent_ln_tc_kernel<NB>,                         \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                                 static_cast<int>(smem));                            \
+      if (err != cudaSuccess) return err;                                            \
+      recurrent_ln_tc_kernel<NB><<<grid, plan.envs, smem, s>>>(                      \
+          sf_in, si_in, sf_out, si_out, w, fv, net, plan, io, out, table, seed, B, T, \
+          f_pad, c, k, oc, ln);                                                      \
+    } else {                                                                         \
+      err = cudaFuncSetAttribute(recurrent_tc_kernel<NB>,                            \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                                 static_cast<int>(smem));                            \
+      if (err != cudaSuccess) return err;                                            \
+      recurrent_tc_kernel<NB><<<grid, plan.envs, smem, s>>>(                         \
+          sf_in, si_in, sf_out, si_out, w, fv, net, plan, io, out, table, seed, B, T, \
+          f_pad, c, k, oc);                                                          \
+    }                                                                                \
+    break;
+    FUTBOL_CASE(3)
+    FUTBOL_CASE(5)
+    FUTBOL_CASE(7)
+    FUTBOL_CASE(9)
+    FUTBOL_CASE(11)
+#undef FUTBOL_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -503,48 +817,34 @@ int futbol_fused_recurrent_tc(const float* sf_in, const int* si_in, float* sf_ou
                               int substeps, int iterations, int max_steps,
                               const float* consts, int n_consts, const float* obs_consts,
                               void* stream) {
-  RecNet net;
-  const RecPlan plan{plan_ints[0],
-                     plan_ints[1],
-                     {plan_ints[2], plan_ints[3], plan_ints[4]},
-                     {plan_ints[5], plan_ints[6], plan_ints[7]}};
-  size_t smem = 0;
-  if (n_consts != kNumConsts || B <= 0 || T < 1 || n_bodies < 3 || n_bodies > 11 ||
-      f_pad < 4 * n_bodies + 2 ||
-      !make_rec_net(dims, n_torso, hsize, wv_off, n_bodies, n_frag, net) ||
-      !rec_plan_ok(net, plan, n_bodies, n_frag, smem))
-    return cudaErrorInvalidValue;
-  Consts c;
-  std::memcpy(&c, consts, sizeof(Consts));
-  const Ints k{substeps, iterations, max_steps};
-  const ObsConsts oc{obs_consts[0], obs_consts[1], obs_consts[2]};
-  const CarryIO io{c_in, h_in, c_out, h_out};
-  const CollectOut out{obs, dirs, acts, logp, value, reward, done, last_value};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + plan.envs - 1) / plan.envs);
-  const uint4* w = static_cast<const uint4*>(wfrag);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (n_bodies) {
-#define FUTBOL_CASE(NB)                                                            \
-  case NB:                                                                         \
-    err = cudaFuncSetAttribute(recurrent_tc_kernel<NB>,                            \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,        \
-                               static_cast<int>(smem));                            \
-    if (err != cudaSuccess) return err;                                            \
-    recurrent_tc_kernel<NB><<<grid, plan.envs, smem, s>>>(                         \
-        sf_in, si_in, sf_out, si_out, w, fv, net, plan, io, out, table, seed, B, T, \
-        f_pad, c, k, oc);                                                          \
-    break;
-    FUTBOL_CASE(3)
-    FUTBOL_CASE(5)
-    FUTBOL_CASE(7)
-    FUTBOL_CASE(9)
-    FUTBOL_CASE(11)
-#undef FUTBOL_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return launch_recurrent<false>(
+      sf_in, si_in, sf_out, si_out, wfrag, n_frag, fv, dims, n_torso, hsize, wv_off,
+      RecLn{0, nullptr}, plan_ints, c_in, h_in, c_out, h_out, obs, dirs, acts, logp, value,
+      reward, done, last_value, table, seed, n_bodies, B, T, f_pad, substeps, iterations,
+      max_steps, consts, n_consts, obs_consts, stream);
+}
+
+// The LayerNorm instantiation: as futbol_fused_recurrent_tc, with the
+// LayerNorm vectors at ln_off of fv (after the value head: gx, bx, gh, bh
+// [4 hp] in the gate columns' order, gc, bc [hp]) and a scratch f32 [2,
+// 2, H, B] for the bootstrap forward's c' and o gates.
+int futbol_fused_recurrent_ln_tc(const float* sf_in, const int* si_in, float* sf_out,
+                                 int* si_out, const void* wfrag, int n_frag,
+                                 const float* fv, const int* dims, int n_torso, int hsize,
+                                 int wv_off, int ln_off, float* scratch,
+                                 const int* plan_ints, const float* c_in, const float* h_in,
+                                 float* c_out, float* h_out, float* obs, int* dirs,
+                                 int* acts, float* logp, float* value, float* reward,
+                                 int* done, float* last_value, const float* table,
+                                 unsigned int seed, int n_bodies, int B, int T, int f_pad,
+                                 int substeps, int iterations, int max_steps,
+                                 const float* consts, int n_consts, const float* obs_consts,
+                                 void* stream) {
+  return launch_recurrent<true>(
+      sf_in, si_in, sf_out, si_out, wfrag, n_frag, fv, dims, n_torso, hsize, wv_off,
+      RecLn{ln_off, scratch}, plan_ints, c_in, h_in, c_out, h_out, obs, dirs, acts, logp,
+      value, reward, done, last_value, table, seed, n_bodies, B, T, f_pad, substeps,
+      iterations, max_steps, consts, n_consts, obs_consts, stream);
 }
 
 }  // extern "C"

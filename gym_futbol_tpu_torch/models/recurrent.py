@@ -13,6 +13,19 @@ over two ``nn.Linear`` layers (``nn.LSTMCell`` carries two biases and
 initialises otherwise), initialised as flax initialises: truncated
 lecun-normal input kernels, an orthogonal ``[H, H]`` recurrent kernel
 per gate, zero biases.
+
+With ``layer_norm=True`` the cell is stable-baselines 2.x's
+layer-normalised LSTM (``tf_layers.lstm(..., layer_norm=True)``, the cell
+of ``MlpLnLstmPolicy``): each product normalised over its whole 4H row
+before the one bias, and c' over its H units before the tanh,
+``gates = LN(t Wi; gx, bx) + LN(h Wh; gh, bh) + b``,
+``h' = sigmoid(o) * tanh(LN(c'; gc, bc))``, ``LN(y) = (y - mean(y)) /
+sqrt(var(y) + 1e-5) * g + b`` (population variance; ``nn.LayerNorm``).
+Its six leaves are three ``nn.LayerNorm`` modules after the heads,
+``ln_i``, ``ln_h`` (4H, gates in the cell's order) and ``ln_c`` (H),
+gains 1 and biases 0 as stable-baselines starts them; ``b`` stays
+``cell_h.bias``. The plain cell's leaves, their order and their
+initialisation are the same in both.
 """
 
 from __future__ import annotations
@@ -21,12 +34,14 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..types import EnvParams
 from .policy import _TRUNC_STD, N_CHOICES
 
 GATES = "ifgo"   # flax OptimizedLSTMCell gate order
+LN_EPS = 1e-5    # stable-baselines' tf_layers._ln
 
 
 def lstm_cell(gates: torch.Tensor, c: torch.Tensor, dim: int = -1,
@@ -45,12 +60,13 @@ class RecurrentActorCritic(nn.Module):
     n_players*2*5], value [B]))`` with ``carry = (c, h)``, each ``[B,
     lstm_size]``; :meth:`initial_carry` is the zero state. Initialised as
     flax initialises (module docstring), from ``generator`` when given.
+    ``layer_norm``: the layer-normalised cell (module docstring).
     """
 
     def __init__(self, n_players: int, obs_dim: int,
                  hidden: Sequence[int] = (128,), lstm_size: int = 128,
                  generator: torch.Generator | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", layer_norm: bool = False):
         super().__init__()
         self.n_players = n_players
         self.obs_dim = obs_dim
@@ -68,6 +84,11 @@ class RecurrentActorCritic(nn.Module):
         self.logits = nn.Linear(lstm_size, n_players * 2 * N_CHOICES,
                                 device=device)
         self.value = nn.Linear(lstm_size, 1, device=device)
+        self.layer_norm = layer_norm
+        if layer_norm:
+            self.ln_i = nn.LayerNorm(4 * lstm_size, eps=LN_EPS, device=device)
+            self.ln_h = nn.LayerNorm(4 * lstm_size, eps=LN_EPS, device=device)
+            self.ln_c = nn.LayerNorm(lstm_size, eps=LN_EPS, device=device)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -81,6 +102,25 @@ class RecurrentActorCritic(nn.Module):
         for block in self.cell_h.weight.chunk(4, 0):
             nn.init.orthogonal_(block, generator=generator)
         nn.init.zeros_(self.cell_h.bias)
+        for ln in self.layer_norms():
+            ln.reset_parameters()
+
+    def layer_norms(self) -> tuple:
+        """``(ln_i, ln_h, ln_c)`` of the layer-normalised cell, else ()."""
+        return (self.ln_i, self.ln_h, self.ln_c) if self.layer_norm else ()
+
+    def _cell(self, x_in: torch.Tensor, c: torch.Tensor, h: torch.Tensor):
+        """One step from the input side of the gates ``x_in`` (``cell_i(t)``,
+        or ``ln_i(cell_i(t)) + b`` with LayerNorm): (c', h')."""
+        if not self.layer_norm:
+            return lstm_cell(self.cell_h(h) + x_in, c)
+        i, f, g, o = (self.ln_h(F.linear(h, self.cell_h.weight)) + x_in).chunk(4, -1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return c, torch.sigmoid(o) * torch.tanh(self.ln_c(c))
+
+    def _input_side(self, t: torch.Tensor) -> torch.Tensor:
+        x = self.cell_i(t)
+        return self.ln_i(x) + self.cell_h.bias if self.layer_norm else x
 
     def initial_carry(self, batch_size: int):
         z = torch.zeros((batch_size, self.lstm_size),
@@ -98,7 +138,7 @@ class RecurrentActorCritic(nn.Module):
 
     def forward(self, carry, obs: torch.Tensor):
         c, h = carry
-        c, h = lstm_cell(self.cell_h(h) + self.cell_i(self._torso(obs)), c)
+        c, h = self._cell(self._input_side(self._torso(obs)), c, h)
         return (c, h), self._heads(h)
 
     def unroll(self, carry, obs: torch.Tensor, done: torch.Tensor,
@@ -115,25 +155,32 @@ class RecurrentActorCritic(nn.Module):
         kernels on a CUDA tensor, their plain version on the CPU), its
         products on the tensor cores from bf16 operand pairs (hi + lo)
         held to float32's result; the torso and the heads in float32 as
-        on the other route; the carry returned carries no gradient."""
+        on the other route; the carry returned carries no gradient. With
+        LayerNorm, K6's LayerNorm instantiation
+        (:func:`~gym_futbol_tpu_torch.ops.fused_bptt.fused_lnlstm_bptt`)."""
         if compute_dtype == torch.bfloat16:
-            from ..ops.fused_bptt import fused_lstm_bptt
+            from ..ops.fused_bptt import fused_lnlstm_bptt, fused_lstm_bptt
 
-            h_all, carry = fused_lstm_bptt(self._torso(obs), self.cell_i.weight,
-                                           self.cell_h.weight, self.cell_h.bias, carry,
-                                           done)
+            args = (self._torso(obs), self.cell_i.weight, self.cell_h.weight,
+                    self.cell_h.bias)
+            if self.layer_norm:
+                h_all, carry = fused_lnlstm_bptt(
+                    *args, [p for ln in self.layer_norms() for p in (ln.weight, ln.bias)],
+                    carry, done)
+            else:
+                h_all, carry = fused_lstm_bptt(*args, carry, done)
             return carry, self._heads(h_all)
         if compute_dtype not in (None, torch.float32):
             raise ValueError("compute_dtype must be None, torch.float32 or "
                              "torch.bfloat16")
-        x_in = self.cell_i(self._torso(obs))
+        x_in = self._input_side(self._torso(obs))
         keep = (1.0 - done.to(x_in.dtype))[..., None]
         hs = []
         c, h = carry
         # unbind, not x_in[t]: each step's backward is then a slice of one
         # stack, not a zero-filled copy of the whole window
         for x_t, keep_t in zip(x_in.unbind(0), keep):
-            c, h = lstm_cell(self.cell_h(h) + x_t, c)
+            c, h = self._cell(x_t, c, h)
             hs.append(h)
             c, h = c * keep_t, h * keep_t
         return (c, h), self._heads(torch.stack(hs))

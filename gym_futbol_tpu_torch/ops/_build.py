@@ -272,6 +272,12 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_fused_recurrent_tc.restype = i
+    # the LayerNorm instantiation: the same, with the LayerNorm vectors'
+    # offset in the f32 vector and a scratch [2, 2, H, B] f32 after the
+    # value head's offset
+    ln_tc = list(lib.futbol_fused_recurrent_tc.argtypes)
+    lib.futbol_fused_recurrent_ln_tc.argtypes = ln_tc[:11] + [i, p] + ln_tc[11:]
+    lib.futbol_fused_recurrent_ln_tc.restype = i
     lib.futbol_fused_update.argtypes = [
         p, p,                 # host arrays of weight / gradient pointers
         i32p, i, i, i,        # widths [n_torso + 1], n_torso, F, G*5
@@ -319,5 +325,29 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_bptt_backward_tc.restype = i
+    lib.futbol_bptt_ln_forward_tc.argtypes = [
+        p, p, p, i,           # the gates' input side (f32 [T, S, H, 4]), Wh
+                              # fragments (hi, lo), their units
+        p, p, p, p,           # gh, bh (the kernel's column order), gc, bc [H]
+        p, p, p,              # done (u8 [T, S]), c0, h0
+        p, p, p, p, p, p, p,  # gates, c' (fragment order), h, h_{t-1} (hi,
+                              # lo), c and h after the window
+        p, p, p,              # y = h_{t-1} Wh [T, S, H, 4], its rows' and c''s
+                              # statistics [T, S, 2]
+        i, i, i,              # S, T, H
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_bptt_ln_forward_tc.restype = i
+    lib.futbol_bptt_ln_backward_tc.argtypes = [
+        p, p, p, p, p,        # gates, c' (fragment order), c0, done, dh of every step
+        p, p, i,              # fragments of Wh^T (hi, lo), their units
+        p, p,                 # dy (hi, lo: bf16 [T, S, H, 4])
+        p, p, p,              # y, its statistics, c''s statistics
+        p, p, p,              # gh ([H, 4] unit-major), gc, bc [H]
+        p, p,                 # dpre f32 [T, S, H, 4], dn f32 [T, S, H]
+        i, i, i,              # S, T, H
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_bptt_ln_backward_tc.restype = i
     _LIB = lib
     return lib

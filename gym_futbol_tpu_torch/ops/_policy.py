@@ -15,6 +15,7 @@ import torch
 
 from .. import env as env_core
 from ..models.policy import N_CHOICES, pack_actions, sample_group
+from ..models.recurrent import LN_EPS
 from ..physics import to_dtype
 from ..types import EnvParams
 from . import _build
@@ -224,6 +225,18 @@ def collect_reference(statef, statei, params: EnvParams, n_steps, uniforms, seed
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``1 / (1 + exp(-x))`` written out, as the kernels round it."""
     return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def ln_stats(y: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """The LayerNorm statistics K5's and K6's LayerNorm instantiations take
+    of ``y`` over ``dims`` (kept): the mean and ``1 / sqrt(var + eps)``,
+    var = ``E[y^2] - E[y]^2`` clamped at 0, each a sum in float32."""
+    n = 1
+    for d in dims:
+        n *= y.shape[d]
+    mu = y.sum(dims, keepdim=True) / n
+    var = ((y * y).sum(dims, keepdim=True) / n - mu * mu).clamp_min(0.0)
+    return mu, 1.0 / torch.sqrt(var + LN_EPS)
 
 
 def unit_major(w: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,15 @@ OUTPUTS (the JAX package's, without its ``(B//128, 128)`` split):
 The torso must have at least one layer: the JAX kernel, given an empty
 torso, feeds ``tanh(obs)`` to the cell where the flax model feeds the raw
 observation; here an empty torso raises, as it does for ``fused_collect``.
+
+LayerNorm (``ln``: the six leaves of a layer-normalised cell,
+:func:`layer_norm_leaves`): the bfloat16 route's kernel
+``recurrent_ln_tc_kernel`` (the same body under a compile-time flag)
+keeps the cell's two products apart and normalises each over its 4H
+row, and c' over its H units, in float32: statistics over the real
+columns, the population variance as ``E[y^2] - E[y]^2`` (clamped at 0),
+``1 / sqrt(var + 1e-5)``. The float32 route refuses it. Its launches
+count under ``ops.LAUNCHES["fused_recurrent_collect_ln"]``.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .. import env as env_core
 from ..models.policy import N_CHOICES
@@ -64,6 +74,7 @@ from ._policy import (
     collect_outputs,
     collect_reference,
     dense_rows,
+    ln_stats,
     pack_mlp,
     padded,
     recurrent_gate_order,
@@ -90,12 +101,14 @@ __all__ = [
     "flatten_recurrent_actor_critic",
     "fused_recurrent_collect",
     "fused_recurrent_collect_reference",
+    "layer_norm_leaves",
     "n_draws_per_step",
     "recurrent_tc_pack",
     "recurrent_tc_plan",
 ]
 
-_build.counters("fused_recurrent_collect", "fused_recurrent_collect_f32")
+_build.counters("fused_recurrent_collect", "fused_recurrent_collect_f32",
+                "fused_recurrent_collect_ln")
 
 
 def flatten_recurrent_actor_critic(model: RecurrentActorCritic) -> tuple:
@@ -115,6 +128,24 @@ def flatten_recurrent_actor_critic(model: RecurrentActorCritic) -> tuple:
     out += [model.cell_i.weight.detach().t().contiguous(), *wb(model.cell_h)]
     out += [*wb(model.logits), *wb(model.value)]
     return tuple(out)
+
+
+def layer_norm_leaves(model: RecurrentActorCritic) -> tuple | None:
+    """The layer-normalised cell's leaves (gx, bx, gh, bh ``[4H]``, gates in
+    blocks, gc, bc ``[H]``: ``ln_i``, ``ln_h``, ``ln_c``'s weights and
+    biases), detached; None for the plain cell."""
+    return tuple(p.detach() for ln in model.layer_norms()
+                 for p in (ln.weight, ln.bias)) or None
+
+
+def _check_ln(ln, hs: int, device) -> None:
+    if ln is None:
+        return
+    shapes = [(4 * hs,)] * 4 + [(hs,)] * 2
+    if len(ln) != 6 or any(tuple(v.shape) != sh or v.dtype != torch.float32
+                           or v.device != device for v, sh in zip(ln, shapes)):
+        raise ValueError(f"ln must be (gx, bx, gh, bh [4H], gc, bc [H]) float32 on the "
+                         f"state's device, H = {hs}")
 
 
 def _check_weights(weights: tuple, params: EnvParams) -> tuple[int, int]:
@@ -147,22 +178,39 @@ def _check_weights(weights: tuple, params: EnvParams) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+def _ln_rows(y: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the rows (features) of ``y`` ``[n, B]`` as the
+    kernel computes it (:func:`._policy.ln_stats`); ``g``, ``b`` ``[n]``."""
+    mu, r = ln_stats(y, (0,))
+    return g[:, None] * ((y - mu) * r) + b[:, None]
+
+
 def _forward(x: torch.Tensor, weights: tuple, n_torso: int, c: torch.Tensor,
-             h: torch.Tensor, compute_dtype=torch.float32):
+             h: torch.Tensor, compute_dtype=torch.float32, ln=None):
     """One view's forward on ``x`` ``[F, B]`` and its carry ``[H, B]``:
     (logits ``[G*5, B]``, value ``[B]``, c', h'). The cell's two products
     are one sum over the stacked column ``[t; h]``, inputs in that order,
     then the bias. ``compute_dtype`` bfloat16 rounds the operands of the
     torso's, the cell's and the logits head's products (:func:`dense_rows`);
     the gates, the carries and the value head (on the unrounded h') stay
-    f32."""
+    f32. ``ln``: the layer-normalised cell, its products apart, each
+    normalised (:func:`_ln_rows`), then the bias."""
     t = x
     for li in range(n_torso):
         t = torch.tanh(dense_rows(t, weights[2 * li], weights[2 * li + 1],
                                   compute_dtype))
     wi, wh, bh, wl, bl, wv, bv = weights[2 * n_torso:]
-    gates = dense_rows(torch.cat([t, h]), torch.cat([wi, wh]), bh, compute_dtype)
-    c, h = lstm_cell(gates, c, dim=0, sigmoid=sigmoid)
+    if ln is None:
+        gates = dense_rows(torch.cat([t, h]), torch.cat([wi, wh]), bh, compute_dtype)
+        c, h = lstm_cell(gates, c, dim=0, sigmoid=sigmoid)
+    else:
+        gx, bx, gh, bhn, gc, bc = ln
+        zero = bh.new_zeros(bh.shape)
+        gates = (_ln_rows(dense_rows(t, wi, zero, compute_dtype), gx, bx)
+                 + _ln_rows(dense_rows(h, wh, zero, compute_dtype), gh, bhn)) + bh
+        i, f, g, o = gates.chunk(4, 0)
+        c = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
+        h = sigmoid(o) * torch.tanh(_ln_rows(c, gc, bc))
     return (dense_rows(h, wl, bl, compute_dtype), dense_rows(h, wv, bv)[0], c, h)
 
 
@@ -170,24 +218,26 @@ def fused_recurrent_collect_reference(
     statef: torch.Tensor, statei: torch.Tensor, weights: tuple,
     carry_c: torch.Tensor, carry_h: torch.Tensor, params: EnvParams,
     n_steps: int | None = None, *, uniforms: torch.Tensor | None = None,
-    seed: int | None = None, compute_dtype=torch.bfloat16,
+    seed: int | None = None, compute_dtype=torch.bfloat16, ln=None,
 ):
     """The kernel's computation as T steps of row-matrix code.
 
     Exactly one draw source: ``uniforms`` f32 ``[T, n_draws, B]`` or
     ``seed`` (the kernel's Philox stream), drawn in ``fused_collect``'s
-    order. ``compute_dtype`` as :func:`fused_recurrent_collect`'s
+    order. ``compute_dtype`` and ``ln`` as :func:`fused_recurrent_collect`'s
     (:func:`_forward`). Returns (statef', statei', obs, dirs, acts, logp,
     value, reward, done, last_value, carry_c', carry_h') as listed in the
     module docstring.
     """
     check_compute_dtype(compute_dtype)
-    n_torso, _ = _check_weights(weights, params)
+    n_torso, hs = _check_weights(weights, params)
+    _check_ln(ln, hs, statef.device)
     cc, hh = list(carry_c), list(carry_h)
 
     def forward(v, x, last=False):
         # the bootstrap forward's own carry advance is thrown away
-        logits, value, c, h = _forward(x, weights, n_torso, cc[v], hh[v], compute_dtype)
+        logits, value, c, h = _forward(x, weights, n_torso, cc[v], hh[v], compute_dtype,
+                                       ln)
         if not last:
             cc[v], hh[v] = c, h
         return logits, value
@@ -219,7 +269,7 @@ def _reorder(w: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return torch.where(order >= 0, out, torch.zeros_like(out))
 
 
-def recurrent_tc_pack(weights: tuple, params: EnvParams):
+def recurrent_tc_pack(weights: tuple, params: EnvParams, ln=None):
     """The flat recurrent weights as the tensor-core kernel takes them:
     (bf16 fragments, flat, in the order torso, logits head, cell; f32
     vector of the padded biases (the cell's in the kernel's column order)
@@ -228,7 +278,10 @@ def recurrent_tc_pack(weights: tuple, params: EnvParams):
     the torso layers, the cell and the head; the value head's offset).
     The cell is ``[t; h]`` x ``[kt + hp, 4 hp]``: Wi's rows, zero rows to
     the torso's padded width kt, Wh's rows, zero rows to hp; its columns
-    :func:`._policy.recurrent_gate_order`'s."""
+    :func:`._policy.recurrent_gate_order`'s. With ``ln`` the f32 vector
+    goes on, from the value head's offset + hp + 2, with gx, bx, gh, bh in
+    the cell's column order (``[4 hp]`` each, zero at a padded unit's
+    columns) and gc, bc (``[hp]``, zero past H)."""
     n_torso, hs = _check_weights(weights, params)
     hp = round_up(hs, 16)
     wi, wh, bh, wl, bl, wv, bv = weights[2 * n_torso:]
@@ -246,6 +299,9 @@ def recurrent_tc_pack(weights: tuple, params: EnvParams):
               hp, nl, w_off, b_off + 4 * hp]                     # the logits head
     fvec += [_reorder(bh.reshape(-1), order), padded(bl, nl), wv.reshape(-1),
              wv.new_zeros(hp - hs), bv.reshape(1), bv.new_zeros(1)]
+    if ln is not None:
+        fvec += [_reorder(v, order) for v in ln[:4]]
+        fvec += [F.pad(v, (0, hp - hs)) for v in ln[4:]]
     return (*tc_buffers(frags, fvec), (ctypes.c_int * len(table))(*table),
             b_off + 4 * hp + nl)
 
@@ -304,7 +360,7 @@ def fused_recurrent_collect(
     statef: torch.Tensor, statei: torch.Tensor, weights: tuple,
     carry_c: torch.Tensor, carry_h: torch.Tensor, seed: int,
     params: EnvParams, n_steps: int, uniforms: torch.Tensor | None = None,
-    compute_dtype=torch.bfloat16,
+    compute_dtype=torch.bfloat16, ln=None,
 ):
     """Collect ``n_steps`` of recurrent self-play experience (module
     docstring).
@@ -320,12 +376,19 @@ def fused_recurrent_collect(
     bfloat16 (the main path: the products' operands rounded to bf16 and
     summed in f32, as the JAX kernel's run on its chip, on the
     tensor-core kernel laid out by :func:`recurrent_tc_plan`) or float32
-    (exact, the CUDA-core kernel). Returns (statef', statei', obs, dirs,
-    acts, logp, value, reward, done, last_value, carry_c', carry_h').
+    (exact, the CUDA-core kernel). ``ln``: the six leaves of a
+    layer-normalised cell (:func:`layer_norm_leaves`), on the bfloat16
+    route only. Returns (statef', statei', obs, dirs, acts, logp, value,
+    reward, done, last_value, carry_c', carry_h').
     """
     check_compute_dtype(compute_dtype)
     b = check_state(statef, statei, params)
     n_torso, hs = _check_weights(weights, params)
+    if ln is not None and compute_dtype == torch.float32:
+        raise ValueError(
+            "the float32 route (recurrent_kernel, recurrent A2C's fused collect) has no "
+            "LayerNorm: a layer-normalised cell collects on compute_dtype=torch.bfloat16")
+    _check_ln(ln, hs, statef.device)
     for name, c in (("carry_c", carry_c), ("carry_h", carry_h)):
         if tuple(c.shape) != (2, hs, b) or c.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 [2, {hs}, {b}], got "
@@ -339,7 +402,7 @@ def fused_recurrent_collect(
         return fused_recurrent_collect_reference(
             statef, statei, weights, carry_c, carry_h, params, n_steps,
             uniforms=uniforms, seed=None if uniforms is not None else seed,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, ln=ln)
     widths = [w.shape[1] for w in weights[:2 * n_torso:2]]
     check_kernel_shape(widths, hs, compute_dtype)
     if not (carry_c.is_contiguous() and carry_h.is_contiguous()):
@@ -364,10 +427,18 @@ def fused_recurrent_collect(
                       flat.data_ptr(), table, n_torso, hs, *carries)
     else:
         plan = recurrent_tc_plan(params, widths, hs, b)
-        frags, fv, table, wv_off = recurrent_tc_pack(weights, params)
+        frags, fv, table, wv_off = recurrent_tc_pack(weights, params, ln)
         vals = (plan["envs"], plan["n_res"], *plan["t_bytes"], *plan["ld"])
         plan_ints = (ctypes.c_int * len(vals))(*vals)
-        _build.launch("futbol_fused_recurrent_tc", "fused_recurrent_collect", *state,
-                      frags.data_ptr(), frags.numel() // 8, fv.data_ptr(), table,
-                      n_torso, hs, wv_off, plan_ints, *carries)
+        head = (*state, frags.data_ptr(), frags.numel() // 8, fv.data_ptr(), table,
+                n_torso, hs, wv_off)
+        if ln is None:
+            _build.launch("futbol_fused_recurrent_tc", "fused_recurrent_collect", *head,
+                          plan_ints, *carries)
+        else:
+            # the bootstrap forward's c' and o gates, both views: [2, 2, H, B]
+            scratch = torch.empty((2, 2, hs, b), device=statef.device)
+            _build.launch("futbol_fused_recurrent_ln_tc", "fused_recurrent_collect_ln",
+                          *head, wv_off + round_up(hs, 16) + 2, scratch.data_ptr(),
+                          plan_ints, *carries)
     return (sf, si, *outs, cc, hh)

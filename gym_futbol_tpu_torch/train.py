@@ -73,6 +73,9 @@ def main(argv: list[str] | None = None):
                          "BPTT A2C, --algo ppo sequence-minibatched recurrent "
                          "PPO")
     ap.add_argument("--lstm-size", type=int, default=128)
+    ap.add_argument("--lstm-layer-norm", action="store_true",
+                    help="with --recurrent: stable-baselines' layer-normalised "
+                         "LSTM (MlpLnLstmPolicy's cell); recurrent PPO only")
     ap.add_argument("--fused-collect", action="store_true",
                     help="collect with the fused_collect kernel "
                          "(fused_recurrent_collect with --recurrent); for "
@@ -135,6 +138,12 @@ def main(argv: list[str] | None = None):
     if args.algo == "a2c" and args.lr_anneal:
         raise SystemExit("--lr-anneal is wired into the PPO optimiser only "
                          "(A2C uses constant-rate RMSProp)")
+    if args.lstm_layer_norm and not args.recurrent:
+        raise SystemExit("--lstm-layer-norm needs --recurrent")
+    if args.lstm_layer_norm and args.algo == "a2c":
+        raise SystemExit("--lstm-layer-norm trains with --algo ppo: recurrent A2C's "
+                         "fused collect is K5's float32 route (recurrent_kernel), "
+                         "which has no LayerNorm")
     normalizing = args.normalize_obs or args.normalize_reward
     if normalizing and (args.algo != "ppo" or args.recurrent):
         raise SystemExit("--normalize-obs/--normalize-reward are wired into "
@@ -194,7 +203,8 @@ def _run(args):
     f = obs_size(env_params)
     if args.recurrent:
         model = RecurrentActorCritic(args.ppt, f, tuple(args.hidden),
-                                     args.lstm_size, device=device)
+                                     args.lstm_size, device=device,
+                                     layer_norm=args.lstm_layer_norm)
         collect_fn = (functools.partial(
             a2c.collect_recurrent_rollout_fused, compute_dtype=getattr(
                 torch, a2c.FUSED_COLLECT_DTYPE[args.algo]))

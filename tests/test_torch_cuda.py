@@ -39,7 +39,11 @@ does not take raises. K6, the recurrent update's LSTM recurrence: both
 kernels against their plain versions at the recurrent PPO cell's
 minibatch and a ragged H = 128 (bounds at the test), the autograd node
 on the card against the same node on the host, the refused shapes, and
-one update on it (two launches and two spans a minibatch).
+one update on it (two launches and two spans a minibatch). LayerNorm
+(stable-baselines' layer-normalised cell): K6's and K5's LayerNorm
+instantiations against their plain versions (a padded H among the
+shapes), a zero carry's rows, the node on the card against the host, one
+recurrent PPO iteration on both kernels, and the refusals.
 """
 
 import importlib
@@ -945,5 +949,237 @@ def test_recurrent_update_on_bptt_kernels(cuda):
     spans = [e for e in prof.events() if e.name == "ops.fused_lstm_bptt"
              and e.device_type == DeviceType.CPU]
     assert len(spans) == 2 * n_mb
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(not torch.equal(a, b) for a, b in zip(first, model.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm: K6's and K5's LayerNorm instantiations
+# ---------------------------------------------------------------------------
+
+
+def _ln_leaves(dev, hs, gen, spread=0.1):
+    """Seeded LayerNorm leaves (gx, bx, gh, bh [4H], gc, bc [H]): gains
+    about 1, biases about 0."""
+    sizes = (4 * hs,) * 4 + (hs,) * 2
+    return [(1.0 if k % 2 == 0 else 0.0)
+            + spread * torch.randn(n, generator=gen, device=dev) for k, n in enumerate(sizes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8192, 128, 64, 256), (1000, 16, 64, 100)],
+                         ids=["cell", "ragged-padded-H100"])
+def test_bptt_ln_kernels_match_plain(cuda, shape):
+    """K6's LayerNorm instantiations against their plain versions on the
+    card, from non-zero (and seven zero) carries with resets inside the
+    window, at the LayerNorm cell's minibatch (8192 sequences, T = 128, H
+    = 256) and a ragged 1000 at H = 100 (padded to 112: the padded units
+    out of every statistic). Both sides take the same gates' input side.
+    At these random weights the layer-normalised recurrence is chaotic (a
+    difference in h grows ~1.12x a step, the plain versions alone: PERF.md
+    §6), so two roundings part by O(1) over 128 steps: the forward's plain
+    version is teacher-forced, each step run from the kernel's own carry
+    of the step before; the backward's is fed the kernel's saved state of
+    the window's first 4 steps (its dh recurrence grows the same way).
+    Bounds as K6's plain route's (largest over the max of the plain
+    output): forward, y and the statistics 1e-4, dpre, dy and dn 1e-3 (the
+    same split products, float32 sums in another order, the hardware
+    exponential)."""
+    from gym_futbol_tpu_torch import ops
+    from gym_futbol_tpu_torch.ops._policy import unit_major
+
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    n_seq, t_len, n_t, hs = shape
+    t, w_i, w_h, b_h, c0, h0, done, dh = _bptt_case(cuda, n_seq, t_len, n_t, hs, 1)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    gx, bx, gh, bh, gc, bc = _ln_leaves(cuda, hs, gen)
+    c0[:7] = 0.0
+    h0[:7] = 0.0                      # zero carries: h Wh a zero row
+    a = torch.tanh(torch.randn(t_len, n_seq, hs, 4, generator=gen, device=cuda))
+    d8 = done.to(torch.uint8)
+    ghu, bhu = unit_major(gh).reshape(hs, 4), unit_major(bh).reshape(hs, 4)
+    before = dict(ops.LAUNCHES)
+    kout, bwd = fb._ln_forward_kernel(a, w_h, (gh, bh, gc, bc), c0, h0, d8)
+    kg, kc, kh, khp, ky, ksh, ksc, kcl, khl = kout
+    rows = [fb.fragment_rows(kg, n_seq, hs).contiguous(),
+            fb.fragment_rows(kc, n_seq, hs).contiguous()]
+    keep = (1.0 - done.float())[..., None]
+    pout, c, h = [], c0, h0
+    for k in range(t_len):            # each step from the kernel's carry
+        pout.append(fb.bptt_ln_forward_reference(a[k:k + 1], w_h, ghu, bhu, gc, bc, c, h,
+                                                 d8[k:k + 1]))
+        c, h = rows[1][k] * keep[k], kh[k] * keep[k]
+    pg, pc, ph, php, py, psh, psc = (torch.cat([p[i] for p in pout]) for i in range(7))
+    assert (ky[0, :7] == 0).all() and (ksh[0, :7, 0] == 0).all()   # y a zero row
+    for got, want in ((rows[0], pg), (rows[1], pc), (kh, ph), (kcl, pout[-1][7]),
+                      (khl, pout[-1][8]), (khp[0].float() + khp[1].float(), php), (ky, py),
+                      (ksh, psh), (ksc, psc)):
+        assert torch.isfinite(got).all() and _rel_max(got, want) <= 1e-4
+    w4 = 4
+    kd = fb._ln_backward_kernel(kg[:w4], kc[:w4], ky[:w4], ksh[:w4], ksc[:w4], c0, d8[:w4],
+                                dh[:w4], bwd, ghu.contiguous(), gc, bc)
+    pd = fb.bptt_ln_backward_reference(rows[0][:w4], rows[1][:w4], ky[:w4], ksh[:w4],
+                                       ksc[:w4], c0, d8[:w4], dh[:w4], w_h, ghu, gc, bc)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]} \
+        == {"fused_lnlstm_bptt": 2}
+    dpre, dy, dn = kd
+    for got, want in ((dpre, pd[0]), (dy[0].float() + dy[1].float(), pd[1]), (dn, pd[2])):
+        assert torch.isfinite(got).all() and _rel_max(got, want) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_bptt_ln_function_matches_host(cuda):
+    """The LayerNorm autograd node on the card (t Wi and its LayerNorm, the
+    kernels, LayerNorm's backward and the split products) against the
+    same node on the host: h of every step, the carry after the window
+    and the gradients of t, the three weights and the six LayerNorm leaves,
+    256 sequences, T = 16, H = 100 (padded). h within 1e-4 of its max,
+    gradients per tensor within 1e-3 relative (L2), as K6's plain node."""
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    case = _bptt_case(cuda, 256, 16, 64, 100, 2, p_done=0.05)
+    ln = _ln_leaves(cuda, 100, torch.Generator(device=cuda).manual_seed(3))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        t, w_i, w_h, b_h, c0, h0, done, dh = (x.to(dev) for x in case)
+        leaves = [x.clone().requires_grad_(True) for x in (t, w_i, w_h, b_h)]
+        lnl = [x.to(dev).clone().requires_grad_(True) for x in ln]
+        h_all, carry = fb.fused_lnlstm_bptt(*leaves, lnl, (c0, h0), done)
+        grads = torch.autograd.grad((h_all * dh).sum(), leaves + lnl)
+        outs.append([x.detach().cpu() for x in (h_all, *carry, *grads)])
+    for k, (got, want) in enumerate(zip(*outs)):
+        if k < 3:
+            assert _rel_max(got, want) <= 1e-4
+        else:
+            assert ((got - want).norm() / want.norm()).item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hs", [6, 260])
+def test_bptt_ln_refuses_shapes(cuda, hs):
+    """The LayerNorm route refuses what K6 refuses, naming the float32
+    route, before any launch."""
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    from gym_futbol_tpu_torch import ops
+
+    t, w_i, w_h, b_h, c0, h0, done, _ = _bptt_case(cuda, 8, 2, 16, hs, 3)
+    ln = _ln_leaves(cuda, hs, torch.Generator(device=cuda).manual_seed(3))
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match=r"compute_dtype=torch\.float32"):
+        fb.fused_lnlstm_bptt(t, w_i, w_h, b_h, ln, (c0, h0), done)
+    assert ops.LAUNCHES == before
+
+
+T_LN = 3      # K5's LayerNorm test's steps
+
+
+def _ln_model_case(cuda, params, hidden, lstm, n_envs, seed=5):
+    from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    state, _ = vector.reset_batch(gen, params, n_envs, device=cuda)
+    sf, si = ops.pack_state(state, params)
+    model = RecurrentActorCritic(params.players_per_team, 4 * params.n_bodies + 2,
+                                 hidden, lstm, generator=gen, device=cuda, layer_norm=True)
+    with torch.no_grad():
+        for ln, v in zip(model.layer_norms(), (0.1, 0.1, 0.1)):
+            ln.weight.add_(v * torch.randn(ln.weight.shape, generator=gen, device=cuda))
+            ln.bias.add_(v * torch.randn(ln.bias.shape, generator=gen, device=cuda))
+        model.cell_h.bias.normal_(0.0, 0.1, generator=gen)
+    cc, hh = (torch.randn(2, lstm, n_envs, generator=gen, device=cuda) * 0.5
+              for _ in range(2))
+    cc[:, :, :5] = 0.0
+    hh[:, :, :5] = 0.0                 # zero carries
+    u = torch.rand((T, tfr.n_draws_per_step(params), n_envs), generator=gen, device=cuda)
+    return sf, si, model, cc, hh, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params,hidden,lstm,n_envs", [
+    (EnvParams(players_per_team=3), (64, 64), 256, 16384),    # MlpLnLstmPolicy
+    (EnvParams(players_per_team=3, max_steps=6), (64, 64), 100, 1000),
+    (CUSTOM, (32, 16), 12, B),
+], ids=["3v3-mlplnlstm", "3v3-ragged-H100", "custom-H12"])
+def test_recurrent_ln_kernel_matches_plain(cuda, params, hidden, lstm, n_envs,
+                                           monkeypatch):
+    """K5's LayerNorm instantiation (recurrent_ln_tc_kernel) against the
+    plain bfloat16 version with the same LayerNorm on the same uniforms,
+    from non-zero and zero carries, by the plain K5 bf16 test's rules
+    and bounds, over 3 steps (T_LN): a bf16 rounding that falls the other
+    way moves a normalised row by its share of the row's deviation, and
+    the chaotic recurrence (PERF.md §6) grows it past 1e-2 within 9 steps
+    on a few of 16384 envs; padded units (H 100 and 12) out of the
+    statistics; one launch, under the LayerNorm route's own counter."""
+    sf, si, model, cc, hh, u = _ln_model_case(cuda, params, hidden, lstm, n_envs)
+    u = u[:T_LN]
+    w, ln = tfrc.flatten_recurrent_actor_critic(model), tfrc.layer_norm_leaves(model)
+    c0, h0 = cc.clone(), hh.clone()
+    before = dict(ops.LAUNCHES)
+    got = ops.fused_recurrent_collect(sf, si, w, cc, hh, 0, params, T_LN, uniforms=u, ln=ln)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]} \
+        == {"fused_recurrent_collect_ln": 1}
+    calls = []
+    sample_with_logp = tpol.sample_with_logp
+    monkeypatch.setattr(tpol, "sample_with_logp", lambda lg, g, uu: (
+        calls.append((lg.clone(), uu.clone())), sample_with_logp(lg, g, uu))[1])
+    want = tfrc.fused_recurrent_collect_reference(sf, si, w, cc, hh, params, uniforms=u,
+                                                  ln=ln)
+    agree = (got[3] == want[3]).all(0).all(0) & (got[4] == want[4]).all(0).all(0)
+    eps = (got[5][..., agree] - want[5][..., agree]).abs().max().item()
+    good, ties, miss = _near_ties(got, want, calls, (3, 4), eps)
+    print(f"near ties: {ties} ({miss} mismatched), logp error {eps:.3g}")
+    for i in (5, 6, 9, 10, 11):
+        torch.testing.assert_close(got[i][..., good], want[i][..., good], rtol=0, atol=1e-2)
+    for i in (0, 1, 2, 7, 8):
+        if got[i].dtype.is_floating_point:
+            torch.testing.assert_close(got[i][..., good], want[i][..., good],
+                                       rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(got[i][..., good], want[i][..., good])
+    assert good.float().mean() > 0.9
+    assert torch.equal(cc, c0) and torch.equal(hh, h0)
+
+
+@pytest.mark.cuda
+def test_recurrent_ln_float32_route_refused(cuda):
+    """The float32 route has no LayerNorm: it raises, naming the route and
+    the bfloat16 one, before any launch."""
+    params = EnvParams(players_per_team=2)
+    sf, si, model, cc, hh, _ = _ln_model_case(cuda, params, (16,), 8, 64)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match=r"float32 route.*compute_dtype=torch\.bfloat16"):
+        ops.fused_recurrent_collect(sf, si, tfrc.flatten_recurrent_actor_critic(model), cc,
+                                    hh, 0, params, 2, compute_dtype=torch.float32,
+                                    ln=tfrc.layer_norm_leaves(model))
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_recurrent_ln_train_iteration_on_kernels(cuda):
+    """One recurrent PPO iteration of the layer-normalised model at 2v2,
+    256 envs, T=8, hidden (32,), H=32 on the main path: K5's LayerNorm
+    instantiation collects (one launch), K6's updates (two a minibatch),
+    each counted under the LayerNorm route's own counter and no other,
+    finite metrics, every parameter moved (the six LayerNorm leaves
+    among them)."""
+    from gym_futbol_tpu_torch import a2c, obs_size
+    from gym_futbol_tpu_torch import recurrent_ppo as rppo
+    from gym_futbol_tpu_torch.models.recurrent import RecurrentActorCritic
+
+    params = EnvParams(players_per_team=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = RecurrentActorCritic(2, obs_size(params), (32,), 32, device=cuda,
+                                 layer_norm=True)
+    cfg = rppo.RecurrentPPOConfig(rollout_steps=8, shuffle_block=64)
+    runner = rppo.init_recurrent_ppo_runner(gen, model, params, cfg, B)
+    first = [p.detach().clone() for p in model.parameters()]
+    before = dict(ops.LAUNCHES)
+    runner, metrics = rppo.train_iteration_recurrent_ppo(
+        runner, params, cfg, collect_fn=a2c.collect_recurrent_rollout_fused)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]} \
+        == {"fused_recurrent_collect_ln": 1,
+            "fused_lnlstm_bptt": 2 * cfg.epochs * cfg.minibatches}
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(first, model.parameters()))
