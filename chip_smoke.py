@@ -102,7 +102,9 @@ port's main paths:
   its plain version step by step (the recurrence is chaotic), their
   times beside the plain instantiations' and the plain versions', the
   bounds of futbench/counts_lnlstm.py, cuBLAS on the same per-step
-  products, t Wi's one stacked product against three, and recurrent PPO
+  products, t Wi's one stacked product against three, LayerNorm's
+  backward tail kernel against its plain version on one minibatch's
+  saved state and timed beside it and its bound, and recurrent PPO
   iterations at the cell's configuration with the LayerNorm route's
   launches under their own counters;
 - phase 23, the port's bench as a user runs it: python -m
@@ -248,6 +250,11 @@ K6_FWD_REL, K6_BWD_REL = 1e-4, 1e-3
 # LayerNorm route's launches under their own counters, the plain ones 0.
 LN_B, LN_HIDDEN, LN_H, LN_T = 16384, (64, 64), 256, 128
 LN_TF_STEPS, LN_BWD_STEPS = 16, 4
+# LayerNorm's backward tail (phase 25) against its plain version on one
+# minibatch's saved state: dx (hi + lo) and the five parameter gradients
+# within 1e-5 relative (L2), each: the same float32 work, its row and
+# column sums in another order (4.2e-7 and 9.6e-7 measured at most).
+LN_TAIL_REL = 1e-5
 LN_PPO = dict(gamma=0.99, gae_lambda=0.95, clip_eps=0.2, lr=0.00025, epochs=4,
               minibatches=4, vf_coef=0.5, ent_coef=0.01, max_grad_norm=0.5,
               shuffle_block=512)
@@ -3400,7 +3407,11 @@ def ln_phase(dev, shares: dict) -> list[dict]:
         "library_ms": None, "yardstick_ms": ms_lib6, "t_wi_stacked_ms": ms_mm3_k,
         "t_wi_three_ms": ms_mm3,
         "unit": f"ms per minibatch of {s} sequences, T {t_len}, torso {n_t}, H {hs}"}
-    del t, t2, rows2, a, leaves, ln_leaves, dh, a_f, b_f, a_b, b_b
+    del leaves, ln_leaves, a_f, b_f, a_b, b_b
+    torch.cuda.empty_cache()
+    tail_record = tail_phase(dev, s, t_len, hs, a, (rows2, wi2), w_h, lnl, b, (c0, h0), d8,
+                             dh)
+    del t, t2, rows2, a, dh
     torch.cuda.empty_cache()
 
     # the main path: recurrent PPO iterations at the cell's configuration
@@ -3422,7 +3433,8 @@ def ln_phase(dev, shares: dict) -> list[dict]:
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     n_mb = cfg.epochs * cfg.minibatches
     check(launches == {"fused_recurrent_collect_ln": n_iters,
-                       "fused_lnlstm_bptt": 2 * n_mb * n_iters},
+                       "fused_lnlstm_bptt": 2 * n_mb * n_iters,
+                       "lnlstm_tail": n_mb * n_iters},
           f"25: the LayerNorm main path's launches {launches}")
     check(all(bool(torch.isfinite(v)) for v in metrics.values()), "25: metrics not finite")
     phase("25 main path", f"train_iteration_recurrent_ppo, the layer-normalised LSTM, 3v3 "
@@ -3433,10 +3445,88 @@ def ln_phase(dev, shares: dict) -> list[dict]:
           f"{n_iters} iterations (counters reset just before) {launches}")
     k5_record["launches"] = launches["fused_recurrent_collect_ln"]
     k6_record["launches"] = launches["fused_lnlstm_bptt"]
+    tail_record["launches"] = launches["lnlstm_tail"]
     del runner
     torch.cuda.empty_cache()
     phase("25 time", f"phase 25 in {time.perf_counter() - t_start:.1f} s")
-    return [k5_record, k6_record]
+    return [k5_record, k6_record, tail_record]
+
+
+def tail_phase(dev, s, t_len, hs, a, t_wi, w_h, lnl, b, carry, d8, dh) -> dict:
+    """Phase 25's LayerNorm backward tail: on one minibatch's saved state
+    (K6-LN's forward and backward over the whole window from the gates'
+    input side ``a``; ``x = t Wi`` from its split operands ``t_wi``
+    and its statistics), the tail kernel against its plain version
+    (``ln_tail_reference``, fed c' copied out of the fragment order as
+    the node did before the kernel) within LN_TAIL_REL, one launch
+    counted; both timed in turns (CUDA events) beside the bound of their
+    bytes. Returns the tail's entry of the kernels line."""
+    import torch
+
+    from gym_futbol_tpu_torch import ops
+    from gym_futbol_tpu_torch.models.recurrent import LN_EPS
+    from gym_futbol_tpu_torch.ops._policy import unit_major
+
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    gx, bx, gh, bh, gc, bc = lnl
+    c0, h0 = carry
+    gxu, bxu = unit_major(gx), unit_major(bx + b)
+    ghu = unit_major(gh).reshape(hs, 4).contiguous()
+    n = t_len * s
+    x = fb._mm3_k(*t_wi)
+    _, mux, rx = torch.native_layer_norm(x, [4 * hs], gxu, bxu, LN_EPS)
+    (_g, c_, _h, _hp, y_, sh_, sc_, *_), b_ = fb._ln_forward_kernel(
+        a, w_h, (gh, bh, gc, bc), c0, h0, d8)
+    dpre, _dy, dn = fb._ln_backward_kernel(_g, c_, y_, sh_, sc_, c0, d8, dh, b_, ghu, gc, bc)
+    del _g, _h, _hp, _dy
+    torch.cuda.empty_cache()
+
+    def kernel(_):
+        return fb._ln_tail_kernel(dpre, x, mux, rx, gxu, y_, sh_, dn, c_, sc_)
+
+    def plain(_):
+        return fb.ln_tail_reference(
+            dpre.reshape(n, 4 * hs), x, mux, rx, gxu, bxu, y_.reshape(n, 4 * hs),
+            sh_.reshape(n, 2), ghu.reshape(-1), dn.reshape(n, hs),
+            fb.fragment_rows(c_, s, hs).reshape(n, hs).contiguous(), sc_.reshape(n, 2), gc,
+            bc)
+
+    before = dict(ops.LAUNCHES)
+    got = kernel(0)
+    torch.cuda.synchronize()
+    changed = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    check(changed == {"lnlstm_tail": 1}, f"25: the tail's launches {changed}")
+    want = plain(0)
+    names = ("dx", "dgx", "db", "dgh", "dgc", "dbc")
+    flat = [[o[0][0].double() + o[0][1].double(), *(z.double() for z in o[1:])]
+            for o in (got, want)]
+    errs = {k: ((g_ - w_).norm() / w_.norm()).item() for k, g_, w_ in zip(names, *flat)}
+    check(all(bool(torch.isfinite(z).all()) for z in flat[0]), "25: the tail not finite")
+    check(max(errs.values()) <= LN_TAIL_REL, f"25: the tail against its plain version {errs}")
+    del got, want, flat
+    torch.cuda.empty_cache()
+    kernel(0)
+    plain(0)                        # the allocator holds both routes' buffers
+    ms_kernel, ms_plain, ms_kernel_again, ms_plain_again = (
+        time_cuda(f, 5) for f in (kernel, plain, kernel, plain))
+    n_bytes = 4 * n * (3 * 4 * hs + 2 * hs + 6) + 2 * 2 * n * 4 * hs
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    phase("25 tail", f"LayerNorm's backward tail, one minibatch (S={s} T={t_len} H={hs}): "
+          f"lnlstm_tail_kernel + lnlstm_tail_sum_kernel {ms_kernel:.3f} ms (again "
+          f"{ms_kernel_again:.3f}), its plain version (three native_layer_norm_backward, "
+          f"c' copied out of the fragment order, dx split) {ms_plain:.3f} (again "
+          f"{ms_plain_again:.3f}); bound {bound:.3f} ({n_bytes / 1e9:.3f} GB at 3.35 TB/s), "
+          f"kernel at {bound / ms_kernel:.3%} of it; against the plain version (relative "
+          f"L2) " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return {
+        "name": "lnlstm_tail", "route": "cuda",
+        "kernel": "lnlstm_tail_kernel + lnlstm_tail_sum_kernel (f32, one pass, partial "
+                  "sums per block)",
+        "source": "none: LayerNorm's backward tail of the layer-normalised LSTM's BPTT "
+                  "node (PyTorch's native_layer_norm_backward before)",
+        "replaces": None, "max_abs_err": max(errs.values()), "ms": ms_kernel,
+        "plain_ms": ms_plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        "unit": f"ms per minibatch of {s} sequences, T {t_len}, H {hs}"}
 
 
 def device_profile(fn):

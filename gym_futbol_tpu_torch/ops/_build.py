@@ -53,7 +53,8 @@ SMS = 132             # the H100's SMs
 # tensor-core route under its name and its CUDA-core chain under
 # ``<name>_chain``; the random rollout its lanes route under its name and
 # its one-thread-per-env route under ``<name>_union``; K6 each of its two
-# kernels (forward, backward) under ``fused_lstm_bptt``.
+# kernels (forward, backward) under ``fused_lstm_bptt``; LayerNorm's
+# backward tail its one entry (two kernels) under ``lnlstm_tail``.
 LAUNCHES: dict[str, int] = {}
 
 
@@ -349,5 +350,15 @@ def load() -> ctypes.CDLL:
         p,                    # cudaStream_t
     ]
     lib.futbol_bptt_ln_backward_tc.restype = i
+    lib.futbol_lnlstm_tail.argtypes = [
+        p, p, p, p, p,        # dpre, x (f32 [T S, 4H]), x's mean and 1 / std, gx
+        p, p,                 # y, its statistics
+        p, p, p,              # dn, c' (fragment order), c''s statistics
+        p, p, p,              # dx (hi, lo: bf16 [T S, 4H]), dx in f32 or NULL
+        p, p,                 # the blocks' partial sums, their sum [14 H]
+        i, i, i, i,           # S, T, H, blocks
+        p,                    # cudaStream_t
+    ]
+    lib.futbol_lnlstm_tail.restype = i
     _LIB = lib
     return lib

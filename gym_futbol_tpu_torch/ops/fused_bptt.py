@@ -79,13 +79,20 @@ the gates and c', then LN(c') and h'; the backward runs LayerNorm's
 backward through c' and through ``h Wh``, each a row reduction across
 the block. Statistics in float32 over the real 4H (or H) columns, the
 population variance as ``E[y^2] - E[y]^2`` (clamped at 0), ``1 /
-sqrt(var + 1e-5)``. Outside again: LayerNorm's backward of ``t Wi``
-(``native_layer_norm_backward``), the six LayerNorm parameters'
-gradients (the same, on the saved ``y``, c' and statistics) and the
-split products of ``dWi``, ``dWh`` and ``dt``. Its launches count under
-``ops.LAUNCHES["fused_lnlstm_bptt"]``; its autograd node, forward and
-backward with the LayerNorm work around the kernels, is the span
-``ops.fused_lnlstm_bptt``.
+sqrt(var + 1e-5)``. Outside again: LayerNorm's backward tail, in one
+pass of its own kernel (``csrc/lnlstm_tail.cu``: ``lnlstm_tail_kernel``,
+then ``lnlstm_tail_sum_kernel`` over its blocks' partial sums): t Wi's
+LayerNorm input gradient ``dx``, written as the two bf16 terms its
+products take, and the six LayerNorm parameters' gradients as column
+sums (``db`` once, the gradient of ``b``, ``bx`` and ``bh`` alike), from
+the saved ``x``, ``y``, c' (read in the forward kernel's fragment order)
+and their statistics (:func:`ln_tail_plan`; plain version
+:func:`ln_tail_reference`, PyTorch's ``native_layer_norm_backward``);
+then the split products of ``dWi``, ``dWh`` and ``dt``. The recurrence's
+launches count under ``ops.LAUNCHES["fused_lnlstm_bptt"]``, the tail's
+(one a backward, two kernels) under ``ops.LAUNCHES["lnlstm_tail"]``;
+its autograd node, forward and backward with the LayerNorm work around
+the kernels, is the span ``ops.fused_lnlstm_bptt``.
 """
 
 from __future__ import annotations
@@ -118,13 +125,16 @@ __all__ = [
     "fragment_rows",
     "fused_lnlstm_bptt",
     "fused_lstm_bptt",
+    "ln_tail_plan",
+    "ln_tail_reference",
     "split_mm",
     "t_fragments",
 ]
 
 ROWS = 64        # sequences a block of either kernel
+TAIL_BLOCKS_PER_SM = 4   # LayerNorm's backward tail: blocks of 128 threads an SM
 
-_build.counters("fused_lstm_bptt", "fused_lnlstm_bptt")
+_build.counters("fused_lstm_bptt", "fused_lnlstm_bptt", "lnlstm_tail")
 
 
 def check_bptt_shape(hsize: int) -> None:
@@ -152,6 +162,20 @@ def bptt_plan(n_t: int, hsize: int, n_seq: int) -> dict:
     return {"kt": kt, "hp": hp, "blocks": -(-n_seq // ROWS),
             "smem_forward": 4 * ROWS * (hp + 8) * 2 + ROWS * (hp + 8) * 4,
             "smem_backward": 2 * ROWS * (2 * hp + 8) * 2 + ROWS * (hp + 8) * 4}
+
+
+def ln_tail_plan(hsize: int, n_rows: int) -> dict:
+    """How LayerNorm's backward tail (``csrc/lnlstm_tail.cu``) runs
+    ``n_rows`` rows, without a card: ``threads_per_row`` (32, 64 or 128,
+    two units of the 4H columns a thread), ``rows_per_block`` (of 128
+    threads), ``blocks`` (:data:`TAIL_BLOCKS_PER_SM` an SM, fewer where
+    the rows run out; each writes one partial row of ``sums`` floats)
+    and ``sums`` (14 H: dgx, db, dgh ``[4H]``, dgc, dbc ``[H]``)."""
+    tpr = 32 if hsize <= 64 else 64 if hsize <= 128 else 128
+    groups = 128 // tpr
+    return {"threads_per_row": tpr, "rows_per_block": groups,
+            "blocks": max(1, min(_build.SMS * TAIL_BLOCKS_PER_SM, -(-n_rows // groups))),
+            "sums": 14 * hsize}
 
 
 def fragment_rows(x: torch.Tensor, n_seq: int, hsize: int) -> torch.Tensor:
@@ -625,6 +649,58 @@ def _check_inputs(t, w_i, w_h, b_h, c0, h0, done) -> None:
 _LN_BWD = torch.ops.aten.native_layer_norm_backward
 
 
+def ln_tail_reference(dpre, x, mux, rx, gxu, bxu, y, st_h, ghu, dn, c_rows, st_c, gc, bc):
+    """LayerNorm's backward tail (module docstring) in PyTorch: ``dpre``,
+    ``x`` (t Wi), ``y`` (h_{t-1} Wh) f32 ``[n, 4H]`` with unit-major
+    columns, x's statistics ``mux``, ``rx`` ``[n, 1]``, y's and c''s
+    ``st_h``, ``st_c`` ``[n, 2]``, ``dn`` and c' ``c_rows`` ``[n, H]``,
+    the gains ``gxu``, ``ghu`` ``[4H]`` unit-major and ``gc`` ``[H]``
+    (and the biases ``native_layer_norm_backward`` asks for). Returns
+    (dx as its two bf16 terms (hi, lo) ``[n, 4H]``, dgx, db, dgh
+    ``[4H]`` unit-major, dgc, dbc ``[H]``); db is the gradient of b, bx
+    and bh alike."""
+    g4, hs = x.shape[1], c_rows.shape[1]
+    dx, dgx, db = _LN_BWD(dpre, x, [g4], mux, rx, gxu, bxu, [True, True, True])
+    _, dgh, _ = _LN_BWD(dpre, y, [g4], st_h[:, :1].contiguous(), st_h[:, 1:].contiguous(),
+                        ghu, bxu, [False, True, False])
+    _, dgc, dbc = _LN_BWD(dn, c_rows, [hs], st_c[:, :1].contiguous(),
+                          st_c[:, 1:].contiguous(), gc, bc, [False, True, True])
+    return _split(dx), dgx, db, dgh, dgc, dbc
+
+
+def _ln_tail_kernel(dpre, x, mux, rx, gxu, y, st_h, dn, c_all, st_c, dx32=None):
+    """LayerNorm's backward tail on the card (``futbol_lnlstm_tail``: the
+    tail kernel, then the sum over its blocks): :func:`ln_tail_reference`'s
+    outputs from K6-LN's ``dpre`` ``[T, S, H, 4]`` and ``dn`` ``[T, S,
+    H]``, the forward's ``y``, statistics and c' (fragment order) as they
+    are saved, and ``x``, ``mux``, ``rx`` ``[T S, ...]``. ``dx32``, where
+    given (f32 ``[T S, 4H]``), also receives dx before its split."""
+    n_steps, n_seq, hs = dn.shape
+    n, hp = n_steps * n_seq, round_up(hs, 16)
+    ins = (dpre, x, mux, rx, gxu, y, st_h, dn, c_all, st_c)
+    shapes = ((n_steps, n_seq, hs, 4), (n, 4 * hs), (n, 1), (n, 1), (4 * hs,),
+              (n_steps, n_seq, hs, 4), (n_steps, n_seq, 2), (n_steps, n_seq, hs),
+              (n_steps, -(-n_seq // ROWS), hp // 8, 8, 32, 2), (n_steps, n_seq, 2))
+    outs = () if dx32 is None else (dx32,)
+    if any(tuple(z.shape) != shape for z, shape in zip(ins + outs, shapes + ((n, 4 * hs),))):
+        raise ValueError("the tail's inputs do not have the node's saved shapes")
+    if any(not z.is_contiguous() or z.dtype != torch.float32 or z.data_ptr() % 16
+           or z.device != dn.device for z in ins + outs):
+        raise ValueError("the tail's tensors must be contiguous, 16-byte aligned float32 "
+                         "on one device")
+    plan = ln_tail_plan(hs, n)
+    hi, lo = (dn.new_empty((n, 4 * hs), dtype=torch.bfloat16) for _ in range(2))
+    part = dn.new_empty((plan["blocks"], plan["sums"]))
+    sums = dn.new_empty(plan["sums"])
+    _build.launch(
+        "futbol_lnlstm_tail", "lnlstm_tail", *(z.data_ptr() for z in ins), hi.data_ptr(),
+        lo.data_ptr(), None if dx32 is None else dx32.data_ptr(), part.data_ptr(),
+        sums.data_ptr(), n_seq, n_steps, hs, plan["blocks"],
+        torch.cuda.current_stream(dn.device).cuda_stream)
+    dgx, db, dgh, dgc, dbc = sums.split([4 * hs] * 3 + [hs] * 2)
+    return (hi, lo), dgx, db, dgh, dgc, dbc
+
+
 class _LnLstmBptt(torch.autograd.Function):
     """The layer-normalised recurrence as one autograd node (module
     docstring): ``t Wi`` and its LayerNorm over the window, the kernels
@@ -675,32 +751,26 @@ class _LnLstmBptt(torch.autograd.Function):
                 dpre, dy, dn = bptt_ln_backward_reference(gates, c_all, y, st_h, st_c, c0,
                                                           done, dh_all, w_h, ghu, gcd, bcd)
                 dy = _split(dy)
-                c_rows = c_all
+                dx2, dgx, d_b, dgh, dgc, dbc = ln_tail_reference(
+                    dpre.reshape(n, 4 * hs), x, mux, rx, gxu, bxu, y.reshape(n, 4 * hs),
+                    st_h.reshape(n, 2), ghu.reshape(-1), dn.reshape(n, hs),
+                    c_all.reshape(n, hs), st_c.reshape(n, 2), gcd, bcd)
             else:
                 dpre, dy, dn = _ln_backward_kernel(gates, c_all, y, st_h, st_c, c0, done,
                                                    dh_all, ctx.packed, ghu, gcd, bcd)
-                c_rows = fragment_rows(c_all, n_seq, hs)
-            dpre = dpre.reshape(n, 4 * hs)
+                dx2, dgx, d_b, dgh, dgc, dbc = _ln_tail_kernel(
+                    dpre, x, mux, rx, gxu, y, st_h, dn, c_all, st_c)
+            del dpre, dn
             d_wh = _from_unit_major(_mm3(tuple(z.reshape(-1, hs).t() for z in hprev),
                                          tuple(d.reshape(n, 4 * hs) for d in dy)))
-            dx, dgx, dbx = _LN_BWD(dpre, x, [4 * hs], mux, rx, gxu, bxu, [True, True, True])
-            sh = st_h.reshape(n, 2)
-            _, dgh, dbh = _LN_BWD(dpre, y.reshape(n, 4 * hs), [4 * hs],
-                                  sh[:, :1].contiguous(), sh[:, 1:].contiguous(),
-                                  ghu.reshape(-1), bxu, [False, True, True])
-            sc = st_c.reshape(n, 2)
-            _, dgc, dbc = _LN_BWD(dn.reshape(n, hs), c_rows.reshape(n, hs).contiguous(),
-                                  [hs], sc[:, :1].contiguous(), sc[:, 1:].contiguous(), gcd,
-                                  bcd, [False, True, True])
-            dx2 = _split(dx)
             d_wi = _from_unit_major(_mm3(tuple(z.reshape(n, n_t).t() for z in t2), dx2))
             dt = None
             if ctx.needs_input_grad[0]:
                 wiu = _split(unit_major(w_i.detach()))
                 dt = _mm3(dx2, wiu).reshape(n_steps, n_seq, n_t)
-            db = _from_unit_major(dbx)
-            return (dt, d_wi, d_wh, db, _from_unit_major(dgx), db, _from_unit_major(dgh), _from_unit_major(dbh),
-                    dgc, dbc, None, None, None)
+            db = _from_unit_major(d_b)
+            return (dt, d_wi, d_wh, db, _from_unit_major(dgx), db, _from_unit_major(dgh),
+                    _from_unit_major(d_b), dgc, dbc, None, None, None)
 
 
 def fused_lnlstm_bptt(t: torch.Tensor, w_i: torch.Tensor, w_h: torch.Tensor,

@@ -43,7 +43,8 @@ one update on it (two launches and two spans a minibatch). LayerNorm
 (stable-baselines' layer-normalised cell): K6's and K5's LayerNorm
 instantiations against their plain versions (a padded H among the
 shapes), a zero carry's rows, the node on the card against the host, one
-recurrent PPO iteration on both kernels, and the refusals.
+recurrent PPO iteration on both kernels, and the refusals; LayerNorm's
+backward tail kernel and its plain version against float64.
 """
 
 import importlib
@@ -1054,6 +1055,93 @@ def test_bptt_ln_function_matches_host(cuda):
             assert ((got - want).norm() / want.norm()).item() <= 1e-3
 
 
+def _ln_tail_case(dev, n_seq, t_len, hs, seed):
+    """The tail's inputs as the node holds them: dpre, y ``[T, S, H, 4]``,
+    x ``[T S, 4H]`` with its LayerNorm statistics, y's and c''s
+    statistics ``[T, S, 2]`` from their rows, dn ``[T, S, H]``, c' in the
+    forward kernel's fragment order (the padded units and rows past S
+    holding noise, which the kernel must not read), the gains and biases
+    ``[4H]`` unit-major and ``[H]``."""
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    from gym_futbol_tpu_torch.ops._policy import ln_stats
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, hp, nblk = t_len * n_seq, -(-hs // 16) * 16, -(-n_seq // 64)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    dpre, y = randn(t_len, n_seq, hs, 4, scale=1e-2), randn(t_len, n_seq, hs, 4, shift=0.2)
+    x = randn(n, 4 * hs, scale=0.7, shift=0.1)
+    dn = randn(t_len, n_seq, hs, scale=1e-2)
+    c_frag = randn(t_len, nblk, hp // 8, 8, 32, 2, scale=0.5, shift=0.1)
+    gxu, bxu, ghu = randn(4 * hs, scale=0.1, shift=1.0), randn(4 * hs, scale=0.1), \
+        randn(4 * hs, scale=0.1, shift=1.0)
+    gc, bc = randn(hs, scale=0.1, shift=1.0), randn(hs, scale=0.1)
+    _, mux, rx = torch.native_layer_norm(x, [4 * hs], gxu, bxu, 1e-5)
+    st_h = torch.cat(ln_stats(y, (2, 3)), -1).reshape(t_len, n_seq, 2)
+    c_rows = fb.fragment_rows(c_frag, n_seq, hs).contiguous()
+    st_c = torch.cat(ln_stats(c_rows, (2,)), -1)
+    return dpre, x, mux, rx, gxu, bxu, y, st_h, ghu, dn, c_frag, c_rows, st_c, gc, bc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seq,t_len,hs", [(2048, 8, 256), (1000, 3, 100), (333, 3, 64)],
+                         ids=["cell-H256", "padded-H100", "ragged-rows-H64"])
+def test_ln_tail_kernel_matches_float64(cuda, n_seq, t_len, hs):
+    """LayerNorm's backward tail kernel (``csrc/lnlstm_tail.cu``) and its
+    plain version ``ln_tail_reference`` (PyTorch's float32
+    ``native_layer_norm_backward``) against the same tail in float64 on
+    the card: the cell's H = 256 over 16384 rows, H = 100 (padded to 112:
+    the padded units out of c''s sums) over 1000 sequences (ragged
+    fragment blocks), and H = 64 over 999 rows (four rows a block: not a
+    multiple). dx's hi + lo and each of the five parameter gradients
+    (dgx, db, dgh, dgc, dbc) within twice PyTorch's error, or 1e-6
+    relative (L2), whichever is larger: the same float32 work, its sums in
+    another order. hi and lo are the bf16 split of the kernel's own f32
+    dx bit for bit; two runs, and a run that also writes the f32 dx, are
+    bitwise equal; one launch counted under ``lnlstm_tail``."""
+    fb = importlib.import_module("gym_futbol_tpu_torch.ops.fused_bptt")
+    (dpre, x, mux, rx, gxu, bxu, y, st_h, ghu, dn, c_frag, c_rows, st_c, gc,
+     bc) = _ln_tail_case(cuda, n_seq, t_len, hs, 11)
+    n = t_len * n_seq
+    rows = (dpre.reshape(n, 4 * hs), x, y.reshape(n, 4 * hs), st_h.reshape(n, 2),
+            dn.reshape(n, hs), c_rows.reshape(n, hs), st_c.reshape(n, 2))
+    d, xx, yy, sh, dd, cc, sc = (z.double() for z in rows)
+    xhat = (xx - mux.double()) * rx.double()
+    gd = gxu.double() * d
+    want = [rx.double() * (gd - gd.mean(1, keepdim=True)
+                           - xhat * (gd * xhat).mean(1, keepdim=True)),
+            (d * xhat).sum(0), d.sum(0), (d * (yy - sh[:, :1]) * sh[:, 1:]).sum(0),
+            (dd * (cc - sc[:, :1]) * sc[:, 1:]).sum(0), dd.sum(0)]
+    plain = fb.ln_tail_reference(rows[0], x, mux, rx, gxu, bxu, rows[2], rows[3], ghu,
+                                 rows[4], rows[5], rows[6], gc, bc)
+    before = ops.LAUNCHES["lnlstm_tail"]
+    dx32 = torch.empty(n, 4 * hs, device=cuda)
+    runs = [fb._ln_tail_kernel(dpre, x, mux, rx, gxu, y, st_h, dn, c_frag, st_c, dx32=z)
+            for z in (None, None, dx32)]
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lnlstm_tail"] == before + 3
+
+    def flat(out):
+        return [out[0][0].double() + out[0][1].double(), *(z.double() for z in out[1:])]
+
+    def rel(got, ref):
+        return ((got - ref).norm() / ref.norm()).item()
+
+    for name, got, pt, ref in zip(("dx", "dgx", "db", "dgh", "dgc", "dbc"), flat(runs[0]),
+                                  flat(plain), want):
+        assert torch.isfinite(got).all()
+        assert rel(got, ref) <= max(2.0 * rel(pt, ref), 1e-6), (name, rel(got, ref),
+                                                                 rel(pt, ref))
+    hi, lo = runs[0][0]
+    assert torch.equal(hi, dx32.bfloat16())
+    assert torch.equal(lo, (dx32 - hi.float()).bfloat16())
+    for other in runs[1:]:
+        assert torch.equal(other[0][0], hi) and torch.equal(other[0][1], lo)
+        assert all(torch.equal(a, b) for a, b in zip(other[1:], runs[0][1:]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hs", [6, 260])
 def test_bptt_ln_refuses_shapes(cuda, hs):
@@ -1159,8 +1247,9 @@ def test_recurrent_ln_float32_route_refused(cuda):
 def test_recurrent_ln_train_iteration_on_kernels(cuda):
     """One recurrent PPO iteration of the layer-normalised model at 2v2,
     256 envs, T=8, hidden (32,), H=32 on the main path: K5's LayerNorm
-    instantiation collects (one launch), K6's updates (two a minibatch),
-    each counted under the LayerNorm route's own counter and no other,
+    instantiation collects (one launch), K6's updates (two a minibatch)
+    and LayerNorm's backward tail runs (one a minibatch), each counted
+    under the LayerNorm route's own counter and no other,
     finite metrics, every parameter moved (the six LayerNorm leaves
     among them)."""
     from gym_futbol_tpu_torch import a2c, obs_size
@@ -1180,6 +1269,7 @@ def test_recurrent_ln_train_iteration_on_kernels(cuda):
     torch.cuda.synchronize()
     assert {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]} \
         == {"fused_recurrent_collect_ln": 1,
-            "fused_lnlstm_bptt": 2 * cfg.epochs * cfg.minibatches}
+            "fused_lnlstm_bptt": 2 * cfg.epochs * cfg.minibatches,
+            "lnlstm_tail": cfg.epochs * cfg.minibatches}
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(first, model.parameters()))

@@ -8,7 +8,9 @@ the window at stable-baselines' ``MlpLstmPolicy`` widths,
 autograd through the same forward, the split products, the weight and
 operand packing and the saved state's fragment order as the kernels
 read them, the routes ``compute_dtype`` picks and the shapes the kernels
-refuse.
+refuse; the LayerNorm node's backward tail: its plan, and its plain
+version bitwise the three ``native_layer_norm_backward`` calls and the
+split it stands for.
 
 Tolerances, with their reasons. K6's products take each operand as two
 bf16 terms and leave out the product of the two low terms
@@ -336,6 +338,89 @@ def test_plan():
     assert fb.bptt_plan(20, 12, 1000)["blocks"] == 16
     wide = fb.bptt_plan(1024, 256, 64)
     assert (wide["smem_forward"], wide["smem_backward"]) == (202752, 200704)
+
+
+def test_ln_tail_plan():
+    """LayerNorm's backward tail: 32, 64 or 128 threads a row by H, two
+    units of the 4H columns and four of c' a thread covering every unit
+    from H = 4 to 256; four blocks an SM, fewer where the rows run out;
+    one partial row of 14 H floats a block."""
+    plan = fb.ln_tail_plan(256, 8192 * 128)
+    assert plan == {"threads_per_row": 128, "rows_per_block": 1, "blocks": 528,
+                    "sums": 3584}
+    assert fb.ln_tail_plan(100, 999) == {"threads_per_row": 64, "rows_per_block": 2,
+                                         "blocks": 500, "sums": 1400}
+    assert fb.ln_tail_plan(64, 5)["blocks"] == 2
+    for hs in range(4, 257, 4):
+        p = fb.ln_tail_plan(hs, 1000)
+        tpr = p["threads_per_row"]
+        assert 2 * tpr >= hs and (tpr == 32 or tpr < hs) and tpr * p["rows_per_block"] == 128
+
+
+@pytest.mark.parametrize("fault", ["x-rows", "c-layout", "stats-dtype", "strided"])
+def test_ln_tail_kernel_refuses_bad_inputs(fault):
+    """The tail kernel's wrapper checks every tensor against the node's
+    saved shapes, dtype and layout before any pointer reaches the kernel:
+    each fault raises, and nothing is launched."""
+    from gym_futbol_tpu_torch import ops
+
+    t_len, n_seq, hs = 2, 70, 12
+    n, hp = t_len * n_seq, 16
+    ins = dict(dpre=torch.zeros(t_len, n_seq, hs, 4), x=torch.zeros(n, 4 * hs),
+               mux=torch.zeros(n, 1), rx=torch.ones(n, 1), gxu=torch.ones(4 * hs),
+               y=torch.zeros(t_len, n_seq, hs, 4), st_h=torch.zeros(t_len, n_seq, 2),
+               dn=torch.zeros(t_len, n_seq, hs),
+               c_all=torch.zeros(t_len, 2, hp // 8, 8, 32, 2),
+               st_c=torch.zeros(t_len, n_seq, 2))
+    if fault == "x-rows":
+        ins["x"] = torch.zeros(n + 1, 4 * hs)
+    elif fault == "c-layout":
+        ins["c_all"] = torch.zeros(t_len, n_seq, hs)
+    elif fault == "stats-dtype":
+        ins["st_h"] = ins["st_h"].double()
+    else:
+        ins["y"] = torch.zeros(t_len, hs, n_seq, 4).transpose(1, 2)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="the tail's"):
+        fb._ln_tail_kernel(*ins.values())
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("hs", [256, 100], ids=["H256", "padded-H100"])
+def test_ln_tail_reference_is_the_three_calls(hs):
+    """:func:`fb.ln_tail_reference`, the node's CPU route, gives exactly
+    what the node computed before it: three ``native_layer_norm_backward``
+    calls (t Wi's input, gain and bias gradients; h Wh's gain and bias;
+    c''s gain and bias) and dx split in two bf16 terms; its one db is each
+    of the first two calls' bias gradients, bitwise."""
+    gen = torch.Generator().manual_seed(hs)
+    n, g4 = 3 * 37, 4 * hs
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen) * scale + shift
+
+    dpre, x, y = randn(n, g4, scale=1e-2), randn(n, g4, scale=0.7), randn(n, g4, shift=0.2)
+    dn, c_rows = randn(n, hs, scale=1e-2), randn(n, hs, scale=0.5)
+    gxu, bxu, ghu = randn(g4, scale=0.1, shift=1.0), randn(g4, scale=0.1), \
+        randn(g4, scale=0.1, shift=1.0)
+    gc, bc = randn(hs, scale=0.1, shift=1.0), randn(hs, scale=0.1)
+    _, mux, rx = torch.native_layer_norm(x, [g4], gxu, bxu, 1e-5)
+    st_h = torch.stack([y.mean(1), 1.0 / (y.var(1, unbiased=False) + 1e-5).sqrt()], 1)
+    st_c = torch.stack([c_rows.mean(1), 1.0 / (c_rows.var(1, unbiased=False) + 1e-5).sqrt()], 1)
+    ln_bwd = torch.ops.aten.native_layer_norm_backward
+    dx, dgx, dbx = ln_bwd(dpre, x, [g4], mux, rx, gxu, bxu, [True, True, True])
+    _, dgh, dbh = ln_bwd(dpre, y, [g4], st_h[:, :1].contiguous(), st_h[:, 1:].contiguous(),
+                         ghu, bxu, [False, True, True])
+    _, dgc, dbc = ln_bwd(dn, c_rows, [hs], st_c[:, :1].contiguous(),
+                         st_c[:, 1:].contiguous(), gc, bc, [False, True, True])
+    hi = dx.to(torch.bfloat16)
+    lo = (dx - hi).to(torch.bfloat16)
+    got = fb.ln_tail_reference(dpre, x, mux, rx, gxu, bxu, y, st_h, ghu, dn, c_rows, st_c,
+                               gc, bc)
+    assert torch.equal(got[0][0], hi) and torch.equal(got[0][1], lo)
+    for a, b in zip(got[1:], (dgx, dbx, dgh, dgc, dbc)):
+        assert torch.equal(a, b)
+    assert torch.equal(got[2], dbh)
 
 
 @pytest.mark.parametrize("hs", [6, 260, 0])
